@@ -8,10 +8,10 @@ Run from the root of a checkout with one CUDA card:
 Phases, one JSON line each (after the card's name and power limit):
 
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/
-   csrc``;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes route-only serving gives it and on one large panel: bitwise in
-   float32 and float64, the same ``+inf`` set, bf16 within one bf16 ulp
+   csrc``, one ``nvcc`` per source, all started together;
+2. hold ``route_score`` against its plain PyTorch version on the card, at
+   the shapes route-only serving gives it and on one large panel: bitwise
+   in float32 and float64, the same ``+inf`` set, bf16 within one bf16 ulp
    (rtol 2**-7); time both with CUDA events;
 3. route-only serving through ``repro_torch.launch.serve.serve`` on the
    card, 4096 requests in two configurations (64 servers; 4 cells x 16
@@ -21,16 +21,35 @@ Phases, one JSON line each (after the card's name and power limit):
    resident slots, clock) must be identical across the three paths and
    equal to the same route on the CPU, and every chunked run must launch
    the kernel at least once per chunk;
-4. a ``kernels`` line with each kernel's launches on the main path (the
-   fleet-scale speculative serve), its error against the plain version,
-   its time, the plain version's time and its bound;
-5. the last line, ``{"ok": true, "device": {...}}``.
+4. hold each LM-plane kernel (rmsnorm, flash attention, flash decode, the
+   SSD scan) against its plain version on the card, in float32 and bf16,
+   at the shapes execute-serving gives it and at the full widths of the
+   edge archs, at the JAX package's kernel-test tolerances (float32 2e-5,
+   bf16 2e-2; the SSD scan 5e-4 / 5e-2); time the kernel, the plain
+   version and one PyTorch library call where there is one, and compute
+   the bound;
+5. LM parity: each edge arch at ``reduced()``, the same weights on the
+   card and on the CPU, a prefill of 8 tokens and 8 teacher-forced decode
+   steps, every step's logits within atol=rtol=1e-4;
+6. full width: smollm-135m at its published config and mamba2-2.7b at
+   full width (depth cut, printed), a prefill of 4 x 512 tokens and 32
+   decode steps; tokens/s, each kernel's launches, finite logits;
+7. serving with execution: ``serve(execute=True)`` for 32 requests on 3
+   servers, routing stats equal to the route-only run, every LM kernel
+   launched;
+8. a ``kernels`` line with each kernel's launches on its main path (the
+   fleet-scale speculative serve for ``route_score``, execute-serving for
+   the others), its error against the plain version, its time, the plain
+   version's time, the library call's time and its bound;
+9. the last line, ``{"ok": true, "device": {...}}``.
 
-Any failed check exits non-zero; without a card, or outside a checkout,
-it exits non-zero before printing any result.
+Float32 matrix products run in full float32: TF32 is off for cuBLAS and
+cuDNN. Any failed check exits non-zero; without a card, or outside a
+checkout, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -39,11 +58,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-KERNELS = ["route_score"]  # every csrc/<name>.cu on the main path
+KERNELS = ["route_score", "rmsnorm", "flash_attention", "flash_decode",
+           "ssd_scan"]  # every csrc/<name>.cu on the main paths
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (data sheet)
 PEAK_OPS = {"float32": 67e12,       # non-tensor-core fp32 (data sheet)
             "bfloat16": 67e12,      # bf16 columns, float32 math
             "float64": 34e12}       # non-tensor-core fp64 (data sheet)
+MATMUL_OPS = {"float32": 67e12,     # products the tensor cores could take:
+              "bfloat16": 989e12}   # dense bf16 tensor cores (data sheet)
+LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests'
+SSD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+PARITY_TOL = 1e-4                   # card vs CPU logits, reduced() float32
+FULL_BATCH, FULL_PROMPT, FULL_DECODE = 4, 512, 32
+FULL_WIDTH = {"smollm_135m": {}, "mamba2_2p7b": {"num_layers": 8}}
+EXEC_SERVE = dict(num_requests=32, n_servers=3, gen_tokens=8)
 N_REQUESTS, CHUNK = 4096, 256
 CONFIGS = {
     "fleet-64": dict(n_servers=64, scenario="steady"),
@@ -80,11 +108,14 @@ def phase_device(torch, cuda_build):
           f"nvidia-smi failed: {smi.stderr.strip()}")
     print(smi.stdout.strip().splitlines()[0], flush=True)
     t0 = time.perf_counter()
-    built = {k: cuda_build.build(k) for k in KERNELS}
+    built = cuda_build.build_all(KERNELS)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"compile_s": s, "library": str(p.relative_to(ROOT))}
                       for k, (p, s) in built.items()},
-          "device": torch.cuda.get_device_name(0)})
+          "device": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+          "tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
 
 # --------------------------------------------------------------------------
@@ -314,6 +345,320 @@ def phase_serve(torch, kernel, serve_mod, dev="cuda"):
 
 
 # --------------------------------------------------------------------------
+def time_cold_ms(torch, fn, iters, flush):
+    """Device time of one call with a cold L2 cache: each call follows a
+    write of ``flush`` (1 GiB, 20x the 50 MB L2, ~0.3 ms of device time),
+    which also keeps the card busy while the host enqueues the call, so
+    the events bracket the call's own kernels and not the host's gaps
+    (as long as the call's host work is shorter than the flush)."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def bound_of(nbytes, ops, peak):
+    """Least time on the card: bytes over HBM bandwidth vs operations over
+    the peak rate; returns (ms, which of the two bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def nbytes_of(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def lm_cases(np, torch, F, ref, ops):
+    """(kernel, case, dtype, kernel call, plain call, library call or None,
+    bound (ms, by), tolerance): execute-serving's shapes first (float32,
+    ``reduced()``), then the edge archs' full widths in float32 and bf16."""
+    rng = np.random.default_rng(12)
+
+    def randn(shape, dt):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device="cuda").to(getattr(torch, dt))
+
+    heads = {"smollm": (9, 3, 64), "starcoder2": (24, 2, 128),
+             "musicgen": (24, 24, 64)}
+    both = ("float32", "bfloat16")
+    # ---- rmsnorm: serve (1, 8, 256); prefill rows 4*512 at each d_model
+    for case, shape, dtypes in (
+            [("serve", (1, 8, 256), ("float32",))]
+            + [(f"rows2048-d{d}", (FULL_BATCH * FULL_PROMPT, d), both)
+               for d in (576, 1536, 2560, 3072)]):
+        for dt in dtypes:
+            x, scale = randn(shape, dt), randn(shape[-1:], dt)
+            bound = bound_of(2 * nbytes_of(x) + nbytes_of(scale),
+                             4 * x.numel(), PEAK_OPS["float32"])
+            yield ("rmsnorm", case, dt,
+                   lambda x=x, s=scale: ops.rmsnorm(x, s),
+                   lambda x=x, s=scale: ref.rmsnorm_ref(x, s),
+                   lambda x=x, s=scale: F.rms_norm(x, s.shape, s, eps=1e-6),
+                   bound, LM_TOL[dt])
+    # ---- flash attention: serve prompt; 4 x 512 prefill per arch's heads
+    attn = [("serve", 1, 8, (4, 2, 64), 0, ("float32",))]
+    attn += [(f"{a}-s512", FULL_BATCH, FULL_PROMPT, hd, 0, both)
+             for a, hd in heads.items()]
+    attn += [("smollm-s8", FULL_BATCH, 8, heads["smollm"], 0, both),
+             ("smollm-s512-window128", FULL_BATCH, FULL_PROMPT,
+              heads["smollm"], 128, both)]
+    for case, b, s, (h, kv, d), window, dtypes in attn:
+        for dt in dtypes:
+            q, k, v = (randn((b, s, n, d), dt) for n in (h, kv, kv))
+            pairs = int(ref.visible_mask(s, s, 0, True, window, "cpu").sum())
+            bound = bound_of(2 * nbytes_of(q) + nbytes_of(k, v),
+                             4 * d * pairs * b * h, MATMUL_OPS[dt])
+            mask = ref.visible_mask(s, s, 0, True, window, "cuda")
+
+            def library(q=q, k=k, v=v, window=window, mask=mask):
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                if window:
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            yield ("flash_attention", case, dt,
+                   lambda q=q, k=k, v=v, w=window: ops.attention(
+                       q, k, v, window=w),
+                   lambda q=q, k=k, v=v, w=window: ref.attention_ref(
+                       q, k, v, window=w),
+                   library, bound, LM_TOL[dt])
+    # ---- flash decode: serve's 16-slot cache; 16 and 544 slots per arch,
+    # the query at the last and at a middle slot
+    dec = [("serve", 1, 16, 8, (4, 2, 64), ("float32",))]
+    for a, hd in heads.items():
+        for slots in (16, FULL_PROMPT + FULL_DECODE):
+            for pos in (slots - 1, slots // 2):
+                dec.append((f"{a}-cache{slots}-pos{pos}", FULL_BATCH, slots,
+                            pos, hd, both))
+    for case, b, slots, pos, (h, kv, d), dtypes in dec:
+        for dt in dtypes:
+            q = randn((b, 1, h, d), dt)
+            k, v = randn((b, slots, kv, d), dt), randn((b, slots, kv, d), dt)
+            seen = pos + 1
+            bound = bound_of(2 * nbytes_of(q)
+                             + 2 * b * seen * kv * d * k.element_size(),
+                             4 * d * seen * b * h, MATMUL_OPS[dt])
+
+            def library(q=q, k=k, v=v, pos=pos):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k[:, :pos + 1].transpose(1, 2),
+                    v[:, :pos + 1].transpose(1, 2), enable_gqa=True)
+
+            yield ("flash_decode", case, dt,
+                   lambda q=q, k=k, v=v, p=pos: ops.decode_attention(q, k, v, p),
+                   lambda q=q, k=k, v=v, p=pos: ref.decode_attention_ref(
+                       q, k, v, p),
+                   library, bound, LM_TOL[dt])
+    # ---- ssd: serve prompt at reduced(); mamba2-2.7b's width, S 512 and 8
+    for case, (b, s, h, p, n, chunk), dtypes in (
+            ("serve", (1, 8, 16, 32, 32, 16), ("float32",)),
+            ("mamba2-s512", (1, FULL_PROMPT, 80, 64, 128, 256), both),
+            ("mamba2-s8", (1, 8, 80, 64, 128, 256), both)):
+        for dt in dtypes:
+            x = randn((b, s, h, p), dt)
+            dtv = F.softplus(randn((b, s, h), "float32"))
+            a_log = randn((h,), "float32") * 0.5
+            bm, cm = randn((b, s, n), dt), randn((b, s, n), dt)
+            d_skip = torch.ones(h, device="cuda")
+            args = (x, dtv, a_log, bm, cm, d_skip)
+            bound = bound_of(2 * nbytes_of(x) + nbytes_of(dtv, bm, cm)
+                             + 4 * b * h * p * n, 5 * b * s * h * p * n,
+                             MATMUL_OPS[dt])
+            yield ("ssd", case, dt,
+                   lambda a=args, c=chunk: ops.ssd(*a, chunk=c),
+                   lambda a=args, c=chunk: ref.ssd_chunked_ref(*a, chunk=c),
+                   None, bound, SSD_TOL[dt])
+
+
+def phase_lm_kernels(np, torch, F, ref, ops):
+    flush = torch.empty(2**28, dtype=torch.float32, device="cuda")  # 1 GiB
+    results = {}
+    for name, case, dt, kernel_fn, plain_fn, library_fn, bound, tol in \
+            lm_cases(np, torch, F, ref, ops):
+        got, expect = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        expect = expect if isinstance(expect, tuple) else (expect,)
+        err = 0.0
+        for g, e in zip(got, expect):
+            check(g.shape == e.shape and g.dtype == e.dtype,
+                  f"{name} {case}/{dt}: shape/type")
+            check(bool(torch.isfinite(g).all()),
+                  f"{name} {case}/{dt}: non-finite output")
+            err = max(err, float((g.float() - e.float()).abs().max()))
+            check(torch.allclose(g.float(), e.float(), atol=tol, rtol=tol),
+                  f"{name} {case}/{dt}: max abs err {err} beyond {tol}")
+        iters = 20
+        res = {"phase": "lm_kernel", "kernel": name, "case": case,
+               "dtype": dt, "shape": list(got[0].shape), "max_abs_err": err,
+               "tolerance": tol,
+               "ms": time_cold_ms(torch, kernel_fn, iters, flush),
+               "call_ms": time_ms(torch, kernel_fn, iters),
+               "plain_ms": time_cold_ms(torch, plain_fn, iters, flush),
+               "library_ms": (None if library_fn is None else
+                              time_cold_ms(torch, library_fn, iters, flush)),
+               "bound_ms": bound[0], "bound_by": bound[1]}
+        emit(res)
+        results[(name, case, dt)] = res
+    return results
+
+
+# --------------------------------------------------------------------------
+def phase_lm_parity(np, torch, lm, configs, archs):
+    """The same reduced() weights on the card and on the CPU: a prefill of
+    8 tokens, then 8 teacher-forced decode steps; every step's logits."""
+    for idx, arch in enumerate(archs):
+        cfg = configs.reduced(configs.get_arch(arch))
+        cpu = lm.init_params(torch.Generator().manual_seed(idx), cfg)
+        card = copy.deepcopy(cpu).to("cuda")
+        shape = (1, 16) + ((cfg.num_codebooks,) if cfg.modality == "audio"
+                           else ())
+        toks = np.random.default_rng(idx).integers(0, cfg.vocab, shape)
+
+        def run(params, device):
+            t = torch.as_tensor(toks, device=device)
+            _, last, cache = lm.prefill(params, t[:, :8], cfg)
+            cache = lm.seat_cache(lm.init_cache(cfg, 1, 16, device=device),
+                                  cache)
+            steps = [last[:, 0]]
+            for i in range(8, 16):
+                _, logits, cache = lm.decode_step(params, cache,
+                                                  t[:, i:i + 1], i, cfg)
+                steps.append(logits[:, 0])
+            return torch.stack(steps).cpu()
+
+        got, expect = run(card, "cuda"), run(cpu, "cpu")
+        err = float((got - expect).abs().max())
+        check(torch.allclose(got, expect, atol=PARITY_TOL, rtol=PARITY_TOL),
+              f"LM parity {arch}: card vs CPU logits max abs err {err}")
+        emit({"phase": "lm_parity", "arch": arch, "steps": 9,
+              "max_abs_logit_err": err, "tolerance": PARITY_TOL})
+
+
+def read_counts(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def zero_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def phase_full_width(np, torch, lm, configs, counters):
+    """Published widths: a prefill of FULL_BATCH x FULL_PROMPT tokens, then
+    FULL_DECODE greedy decode steps, bf16 weights drawn from a seed."""
+    for arch, overrides in FULL_WIDTH.items():
+        published = configs.get_arch(arch)
+        cfg = configs.get_arch(arch, **overrides)
+        t0 = time.perf_counter()
+        params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+        params = params.to("cuda")
+        init_s = time.perf_counter() - t0
+        shape = (FULL_BATCH, FULL_PROMPT) + (
+            (cfg.num_codebooks,) if cfg.modality == "audio" else ())
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab, shape), device="cuda")
+
+        def generate(prompt, n):
+            ids, last, cache = lm.prefill(params, prompt, cfg)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cache = lm.seat_cache(lm.init_cache(
+                cfg, prompt.shape[0], prompt.shape[1] + n, device="cuda"),
+                cache)
+            tok, finite = ids[:, -1:], torch.isfinite(last).all()
+            for i in range(n):
+                tok, logits, cache = lm.decode_step(
+                    params, cache, tok, prompt.shape[1] + i, cfg)
+                finite = finite & torch.isfinite(logits).all()
+            torch.cuda.synchronize()
+            return t1, time.perf_counter(), bool(finite)
+
+        generate(toks, FULL_DECODE)  # warm-up: library handles, allocator
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t1, t2, finite = generate(toks, FULL_DECODE)
+        launches = read_counts(counters)
+        check(finite, f"full width {arch}: non-finite logits")
+        for k in (["rmsnorm", "ssd"] if cfg.family == "ssm"
+                  else ["rmsnorm", "flash_attention", "flash_decode"]):
+            check(launches[k] > 0, f"full width {arch}: {k} never launched")
+        emit({"phase": "full_width", "arch": arch, "dtype": cfg.param_dtype,
+              "layers": cfg.num_layers,
+              "depth_cut": (f"{published.num_layers} -> {cfg.num_layers} "
+                            "layers" if cfg.num_layers != published.num_layers
+                            else None),
+              "d_model": cfg.d_model, "vocab": cfg.vocab,
+              "batch": FULL_BATCH, "prompt": FULL_PROMPT,
+              "decode_steps": FULL_DECODE, "init_s": init_s,
+              "prefill_s": t1 - t0, "decode_s": t2 - t1,
+              "prefill_tok_s": FULL_BATCH * FULL_PROMPT / (t1 - t0),
+              "decode_tok_s": FULL_BATCH * FULL_DECODE / (t2 - t1),
+              "launches": launches, "finite": finite,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+        del params
+        torch.cuda.empty_cache()
+
+
+def phase_execute_serve(torch, serve_mod, counters):
+    timing = ("route_s", "wall_s")
+    serve_mod.serve(execute=True, **EXEC_SERVE)  # warm-up: first-use costs
+    zero_counts(counters)
+    stats = serve_mod.serve(execute=True, **EXEC_SERVE)
+    launches = read_counts(counters)
+    routed = serve_mod.serve(execute=False, **EXEC_SERVE)
+    same = ({k: v for k, v in stats.items() if k not in timing}
+            == {k: v for k, v in routed.items() if k not in timing})
+    check(same, "execute-serve: routing stats differ from the route-only run")
+    for k in ("rmsnorm", "flash_attention", "flash_decode", "ssd"):
+        check(launches[k] > 0, f"execute-serve: {k} never launched")
+    emit({"phase": "execute_serve", **EXEC_SERVE,
+          "route_s": stats["route_s"], "wall_s": stats["wall_s"],
+          "execute_s": stats["wall_s"] - stats["route_s"],
+          "completion_rate": stats["completion_rate"],
+          "routing_stats_equal_route_only": same, "launches": launches})
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, results):
+    """The ``kernels`` line's entry: execute-serving's case for the times,
+    the largest float32 and bf16 errors over all cases, and the first
+    full-width bf16 case beside it."""
+    mine = {k: r for k, r in results.items() if k[0] == name}
+    main = next(r for (n, c, d), r in mine.items() if c == "serve")
+    full = next(r for (n, c, d), r in mine.items()
+                if c != "serve" and d == "bfloat16")
+    keys = ("case", "dtype", "shape", "ms", "call_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for (n, c, d), r in mine.items()
+                           if d == "float32"),
+        "max_abs_err_bf16": max(r["max_abs_err"] for (n, c, d), r
+                                in mine.items() if d == "bfloat16"),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "call_ms": main["call_ms"],
+        "shape": main["shape"], "dtype": main["dtype"],
+        "full_width": {k: full[k] for k in keys},
+    }
+
+
+# --------------------------------------------------------------------------
 def main():
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("run from the root of a checkout: src/repro_torch is missing")
@@ -321,31 +666,57 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
+    torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(SRC))
     import numpy as np
-    from repro_torch.kernels import cuda_build, ref
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import (cuda_build, flash_attention, flash_decode,
+                                     ops, ref, rmsnorm, ssd_scan)
     from repro_torch.kernels import route_score as kernel
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm
 
+    counters = {"route_score": kernel.route_score, "rmsnorm": rmsnorm.rmsnorm,
+                "flash_attention": flash_attention.flash_attention,
+                "flash_decode": flash_decode.flash_decode, "ssd": ssd_scan.ssd}
+    t_start = time.perf_counter()
     phase_device(torch, cuda_build)
     scores = phase_route_score(np, torch, kernel, ref)
     main_launches = phase_serve(torch, kernel, serve_mod)
+    t_lm = time.perf_counter()
+    lm_results = phase_lm_kernels(np, torch, F, ref, ops)
+    phase_lm_parity(np, torch, lm, configs, serve_mod.EDGE_ARCHS)
+    phase_full_width(np, torch, lm, configs, counters)
+    exec_launches = phase_execute_serve(torch, serve_mod, counters)
+    t_end = time.perf_counter()
+    emit({"phase": "timing", "total_s": t_end - t_start,
+          "lm_phases_s": t_end - t_lm})
     main = scores[("main-path-base", "float32")]
     err = max(r["max_abs_err"] for (case, dt), r in scores.items()
               if dt != "bfloat16")
+    csrc, pallas = "src/repro_torch/kernels/csrc", "src/repro/kernels"
     emit({"kernels": [{
         "name": "route_score", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/route_score.cu",
-        "replaces": "src/repro/kernels/route_score.py:212",
+        "source": f"{csrc}/route_score.cu",
+        "replaces": f"{pallas}/route_score.py:212",
         "launches": main_launches, "max_abs_err": err,
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
-        # the same two numbers again under this slice's own names
+        # the same two numbers again under their earlier names
         "max_abs_diff": err, "kernel_ms": main["ms"],
         "device_ms": main["device_ms"], "shape": main["shape"],
         "dtype": "float32",
-    }]})
+    }] + [
+        kernel_entry(name, f"{csrc}/{src}.cu", f"{pallas}/{src}.py:{line}",
+                     exec_launches[name], lm_results)
+        for name, src, line in (("rmsnorm", "rmsnorm", 34),
+                                ("flash_attention", "flash_attention", 98),
+                                ("flash_decode", "flash_decode", 83),
+                                ("ssd", "ssd_scan", 99))
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -21,13 +21,19 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
-#: --fmad=false: no a*b+c contraction, so the kernels round like their
-#: plain versions (each kernel also spells its arithmetic with _rn
-#: intrinsics).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC",
 )
+#: Flags of one kernel on top of ``NVCC_FLAGS``. route_score builds with
+#: --fmad=false: no a*b+c contraction, so it rounds like its plain version
+#: bit for bit (it also spells its arithmetic with _rn intrinsics). The
+#: LM-plane kernels are held to a tolerance and keep nvcc's FMAs.
+KERNEL_FLAGS = {"route_score": ("--fmad=false",)}
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
 
 
 def nvcc_path() -> str:
@@ -46,32 +52,66 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha1(src + " ".join(nvcc_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build_all(names) -> dict[str, tuple[Path, float]]:
+    """Compile every ``csrc/<name>.cu`` whose library is missing, one
+    ``nvcc`` each, all started together; returns, for each name, the
+    library path and the seconds until its compile ended (0.0 when
+    reused). Raises with the compiler's output if any build fails."""
+    out, running = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        lib = library_path(name)
+        if lib.is_file():
+            out[name] = (lib, 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, cmd, lib, tmp)
+    failed = []
+    for name, (proc, cmd, lib, tmp) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {name} (exit "
+                          f"{proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial
+        out[name] = (lib, time.perf_counter() - t0)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def build(name: str) -> tuple[Path, float]:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns the
     library path and the seconds the compile took (0.0 when reused)."""
-    lib = library_path(name)
-    if lib.is_file():
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {name} (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial
-    return lib, time.perf_counter() - t0
+    return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The kernel library, built on first use in this process."""
     lib, _ = build(name)
-    return ctypes.CDLL(str(lib))
+    cdll = ctypes.CDLL(str(lib))
+    err = getattr(cdll, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return cdll
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise if the C entry point of ``name`` returned non-zero: a
+    negative code is an argument the kernel does not take, a positive one
+    the ``cudaGetLastError()`` of the launch."""
+    if rc == 0:
+        return
+    msg = ("arguments the kernel does not take" if rc < 0 else
+           getattr(load(name), f"{name}_error_string")(rc).decode())
+    raise RuntimeError(f"{name} launch failed ({rc}): {msg}")

@@ -3,11 +3,20 @@
 CPU tensors go to the plain PyTorch version in ``ref``; CUDA tensors go
 to the hand-written kernel, which raises if it cannot build or launch.
 There is no backend option and no fallback from the kernel to the plain
-version.
+version; the port ignores ``ArchConfig.kernel_backend``.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import ref
+
+
+def _on(name, device):
+    """True for CUDA tensors, False for CPU ones; raises otherwise."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {device.type!r}")
 
 
 def route_score(
@@ -23,11 +32,53 @@ def route_score(
                   eta=eta, beta=beta, cloud_cell=cloud_cell)
     args = (prompt_bits, size_bits, flops_tok, work,
             uplink_bps, backhaul_bps, flops_per_s)
-    device = prompt_bits.device.type
-    if device == "cuda":
+    if _on("route_score", prompt_bits.device):
         from repro_torch.kernels import route_score as _k
 
         return _k.route_score(*args, **kwargs)
-    if device == "cpu":
-        return ref.route_score_ref(*args, **kwargs)
-    raise ValueError(f"route_score: no kernel for device {device!r}")
+    return ref.route_score_ref(*args, **kwargs)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6):
+    """Row RMSNorm over the last axis (``csrc/rmsnorm.cu``)."""
+    if _on("rmsnorm", x.device):
+        from repro_torch.kernels import rmsnorm as _k
+
+        return _k.rmsnorm(x, scale, eps=eps)
+    return ref.rmsnorm_ref(x, scale, eps)
+
+
+def attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """Causal GQA attention at prefill (``csrc/flash_attention.cu``)."""
+    if _on("attention", q.device):
+        from repro_torch.kernels import flash_attention as _k
+
+        return _k.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+
+
+def decode_attention(q, k, v, pos: int, *, window=0):
+    """One query per sequence over a KV cache (``csrc/flash_decode.cu``)."""
+    if _on("decode_attention", q.device):
+        from repro_torch.kernels import flash_decode as _k
+
+        return _k.flash_decode(q, k, v, pos, window=window)
+    return ref.decode_attention_ref(q, k, v, pos, window=window)
+
+
+def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 256):
+    """Mamba2 SSD scan at prefill (``csrc/ssd_scan.cu``); ``chunk`` is the
+    plain version's block length and does not change the result."""
+    if _on("ssd", x.device):
+        from repro_torch.kernels import ssd_scan as _k
+
+        return _k.ssd(x, dt, a_log, b, c, d_skip)
+    return ref.ssd_chunked_ref(x, dt, a_log, b, c, d_skip, chunk=chunk)
+
+
+def ssd_decode(state, xt, dtt, a_log, bt, ct, d_skip):
+    """One recurrent SSD step: plain tensor code on every device, as in
+    the JAX package (a single step moves too little to need a kernel)."""
+    return ref.ssd_decode_ref(state, xt, dtt, a_log, bt, ct, d_skip)

@@ -3,7 +3,10 @@
 Each function here computes what its CUDA kernel computes, with the same
 grouping of operations, in ordinary tensor code. The CPU path of every
 wrapper runs it, the tests hold it against the JAX package's reference,
-and ``chip_smoke.py`` holds each kernel against it on the card.
+and ``chip_smoke.py`` holds each kernel against it on the card. The
+LM-plane versions follow the JAX package's ``repro/kernels/ref.py``
+oracles term for term; activations are laid out (batch, seq, heads,
+head_dim) as there.
 """
 from __future__ import annotations
 
@@ -78,3 +81,147 @@ def route_score_ref(
             visible = visible | spilled
         score = torch.where(visible, score, math.inf)
     return score.to(out_dtype)
+
+
+NEG_INF = -1e30  # masked score: exp() of it is 0 and never NaN
+
+
+# =============================== RMSNorm ======================================
+def rmsnorm_ref(x, scale, eps: float = 1e-6):
+    """Row RMSNorm over the last axis: float32 math, the input's type out."""
+    x32 = x.float()
+    rms = torch.sqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return ((x32 / rms) * scale.float()).to(x.dtype)
+
+
+# =============================== Attention ====================================
+def visible_mask(sq, sk, q_offset, causal, window, device):
+    """(Sq, Sk) mask: key j is visible to query i (absolute i + q_offset)."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    kj = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi
+    if window > 0:
+        mask &= kj > qi - window
+    return mask
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+    """Causal GQA attention. q: (B, Sq, H, D); k, v: (B, Sk, KV, D).
+
+    float32 math. ``q_offset`` is the absolute position of q[:, 0];
+    ``window`` > 0 keeps key j for query i iff i - window < j <= i."""
+    h, d = q.shape[2], q.shape[3]
+    rep = h // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = visible_mask(q.shape[1], k.shape[1], q_offset, causal, window, q.device)
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, pos: int, *, window=0):
+    """One query per sequence over a cache. q: (B, 1, H, D); k, v:
+    (B, S, KV, D); keys ``j <= pos`` (and inside ``window``) are visible.
+
+    Grouped form: the q heads of one kv group share its keys. Scores are
+    float32 from the operands' products; the probabilities are rounded to
+    the cache's type before the PV product, as the reference does."""
+    b, _, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    qg = q[:, 0].reshape(b, kv, h // kv, d)
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k.float()) * scale
+    kj = torch.arange(s, device=q.device)
+    mask = kj <= pos
+    if window > 0:
+        mask &= kj > pos - window
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bgrk,bkgd->bgrd", p.float(), v.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# =============================== Mamba2 SSD ===================================
+def ssd_naive_ref(x, dt, a_log, b, c, d_skip):
+    """Recurrent SSD oracle, float32, sequential over S.
+
+    x: (B, S, H, P); dt: (B, S, H); a_log, d_skip: (H,); b, c: (B, S, N)
+    shared across heads. Returns (y (B, S, H, P) in x's type, final state
+    (B, H, P, N) float32)."""
+    bsz, s, h, p = x.shape
+    x32, dt32, b32, c32 = x.float(), dt.float(), b.float(), c.float()
+    a = -torch.exp(a_log.float())
+    state = torch.zeros((bsz, h, p, b.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(a[None] * dt32[:, t])                      # (B, H)
+        add = torch.einsum("bhp,bn->bhpn",
+                           x32[:, t] * dt32[:, t, :, None], b32[:, t])
+        state = state * decay[..., None, None] + add
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c32[:, t]))
+    y = torch.stack(ys, dim=1) + x32 * d_skip.float()[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_chunked_ref(x, dt, a_log, b, c, d_skip, chunk: int = 256):
+    """SSD chunked algorithm (Mamba2 paper §6): quadratic inside a chunk,
+    recurrent across chunks. A ragged tail is padded with dt=0 steps,
+    which leave the state and the real outputs unchanged."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    s_orig = s
+    if s % chunk:
+        pad = chunk - s % chunk
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+        s += pad
+    nc = s // chunk
+    x32 = x.float().reshape(bsz, nc, chunk, h, p)
+    dt32 = dt.float().reshape(bsz, nc, chunk, h)
+    b32 = b.float().reshape(bsz, nc, chunk, n)
+    c32 = c.float().reshape(bsz, nc, chunk, n)
+    a = -torch.exp(a_log.float())
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(nc):
+        xc, dtc, bc, cc = x32[:, i], dt32[:, i], b32[:, i], c32[:, i]
+        cum = torch.cumsum(a[None, None] * dtc, dim=1)          # (B, Q, H)
+        total = cum[:, -1]                                      # (B, H)
+        li = cum[:, :, None, :] - cum[:, None, :, :]            # (B, Q, Q, H)
+        decay_mat = torch.where(causal[None, :, :, None], torch.exp(li), 0.0)
+        scores = torch.einsum("bin,bjn->bij", cc, bc)
+        gate = scores[..., None] * decay_mat
+        xdt = xc * dtc[..., None]                               # (B, Q, H, P)
+        y_intra = torch.einsum("bijh,bjhp->bihp", gate, xdt)
+        y_inter = torch.einsum("bin,bhpn,bih->bihp", cc, state, torch.exp(cum))
+        rem = torch.exp(total[:, None] - cum)
+        add = torch.einsum("bjn,bjhp,bjh->bhpn", bc, xdt, rem)
+        state = state * torch.exp(total)[..., None, None] + add
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(bsz, s, h, p)[:, :s_orig]
+    y = y + x.float()[:, :s_orig] * d_skip.float()[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_decode_ref(state, xt, dtt, a_log, bt, ct, d_skip):
+    """One recurrent SSD step. state: (B, H, P, N) float32; xt: (B, H, P);
+    dtt: (B, H); bt, ct: (B, N). Returns (y (B, H, P), new state)."""
+    a = -torch.exp(a_log.float())
+    dt32 = dtt.float()
+    decay = torch.exp(a[None] * dt32)
+    add = torch.einsum("bhp,bn->bhpn", xt.float() * dt32[..., None],
+                       bt.float())
+    new_state = state * decay[..., None, None] + add
+    y = torch.einsum("bhpn,bn->bhp", new_state, ct.float())
+    y = y + xt.float() * d_skip.float()[None, :, None]
+    return y.to(xt.dtype), new_state

@@ -44,8 +44,6 @@ def _library():
         p, i, i, p,              # out, B, N, stream
     ]
     lib.route_score_launch.restype = i
-    lib.route_score_error_string.argtypes = [i]
-    lib.route_score_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -145,10 +143,7 @@ def route_score(
             _ptr(rc_i), _ptr(sc_i), _ptr(spill_u8), c, int(cloud_cell),
             out.data_ptr(), b, n, torch.cuda.current_stream(dev).cuda_stream,
         )
-    if rc != 0:
-        msg = ("unsupported dtype pair" if rc < 0
-               else lib.route_score_error_string(rc).decode())
-        raise RuntimeError(f"route_score launch failed ({rc}): {msg}")
+    cuda_build.check_launch("route_score", rc)
     route_score.launches += 1
     return out
 

@@ -1,0 +1,88 @@
+"""Mamba2 SSD scan (forward): the CUDA kernel's wrapper.
+
+The kernel (``csrc/ssd_scan.cu``) replaces the JAX package's Pallas TPU
+kernel ``repro/kernels/ssd_scan.py``: one block per (head, batch) carries
+the (P, N) float32 state in registers through the sequence, with b and c
+read per (batch, position), shared by the heads. It computes the function
+of ``ref.ssd_chunked_ref`` (and of the recurrence ``ref.ssd_naive_ref``)
+in its recurrent form, so the chunk length does not enter it. Forward
+only: the backward comes with LM training.
+
+This wrapper takes CUDA tensors only (``ops.ssd`` sends CPU tensors to
+the plain version), checks them, brings b and c to x's type and dt,
+a_log, d_skip to float32, allocates y and the final state and launches on
+PyTorch's current stream. ``ssd.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import cuda_build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
+_MAX_STATE = 512   # N: 32 threads of 16 columns share a row
+_MAX_GRID_Y = 65535
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = cuda_build.load("ssd_scan")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_launch.argtypes = [
+        i, p, p, p, p, p, p,      # dtype, x, dt, a_log, b, c, d_skip
+        p, p,                     # y, state
+        i, i, i, i, i, p,         # B, S, H, P, N, stream
+    ]
+    lib.ssd_scan_launch.restype = i
+    return lib
+
+
+def ssd(x, dt, a_log, b, c, d_skip):
+    """x: (B, S, H, P) float32 or bf16; dt: (B, S, H); a_log, d_skip:
+    (H,); b, c: (B, S, N). Returns (y (B, S, H, P) in x's type, final
+    state (B, H, P, N) float32), as ``ref.ssd_chunked_ref``."""
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in (dt, a_log, b, c, d_skip)):
+        raise ValueError("the ssd kernel takes CUDA tensors on one device; "
+                         "ops.ssd sends CPU tensors to the plain version")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"ssd: unsupported type {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"ssd: x of shape {tuple(x.shape)}, expected "
+                         "(B, S, H, P)")
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    if (tuple(dt.shape) != (bsz, s, h) or tuple(b.shape) != (bsz, s, n)
+            or tuple(c.shape) != (bsz, s, n) or tuple(a_log.shape) != (h,)
+            or tuple(d_skip.shape) != (h,)):
+        raise ValueError(
+            f"ssd: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, b "
+            f"{tuple(b.shape)}, c {tuple(c.shape)}, a_log "
+            f"{tuple(a_log.shape)}, d_skip {tuple(d_skip.shape)} do not fit")
+    if n > _MAX_STATE or bsz > _MAX_GRID_Y:  # the C entry refuses the rest
+        raise ValueError(f"ssd: (B, N) = ({bsz}, {n}) is beyond the kernel's "
+                         f"grid or block (B <= {_MAX_GRID_Y}, N <= {_MAX_STATE})")
+    x = x.contiguous()
+    b, c = (t.to(x.dtype).contiguous() for t in (b, c))
+    dt, a_log, d_skip = (t.to(torch.float32).contiguous()
+                         for t in (dt, a_log, d_skip))
+    y = torch.empty_like(x)
+    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)
+    if y.numel() == 0 and state.numel() == 0:
+        return y, state
+    with torch.cuda.device(dev):
+        rc = _library().ssd_scan_launch(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
+            a_log.data_ptr(), b.data_ptr(), c.data_ptr(), d_skip.data_ptr(),
+            y.data_ptr(), state.data_ptr(), bsz, s, h, p, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch("ssd_scan", rc)
+    ssd.launches += 1
+    return y, state
+
+
+ssd.launches = 0

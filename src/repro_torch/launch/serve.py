@@ -1,6 +1,5 @@
-"""Serving entry point: model-aware routing of a scenario stream on the card.
-
-Route-only serving, the JAX package's ``serve --no-execute``:
+"""Serving entry point: model-aware routing of a scenario stream on the card,
+then generation of every routed request. Port of ``repro/launch/serve.py``:
   * a fleet of ``EdgeServer``s, each caching a subset of the catalogue
     (the edge-suitable members of the 10 assigned architectures);
   * a request stream compiled from ``(ScenarioSpec, --seed)``
@@ -15,10 +14,16 @@ servers plus one cloud-fallback server (``make_cloud_server``);
 stream's wall clock; ``--chunk C`` routes through the two-phase commit
 (one fused ``route_score`` kernel launch per chunk of C requests).
 ``--device`` picks the device (default: the CUDA card; ``cpu`` runs the
-plain PyTorch path). Executing the routed requests through the LM zoo
-comes with the execute slice of the port, trained-actor policies with
-the policies slice.
+plain PyTorch path). Without ``--no-execute`` every routed request is
+then generated locally, as in the reference: one ``reduced()`` model per
+catalogue entry (weights drawn on the CPU from a generator seeded with
+the entry's index, then moved to the device), an 8-token zero prompt
+prefilled and ``gen_tokens`` tokens decoded greedily through
+``models/lm.py``, whose kernels (rmsnorm, flash attention, flash decode,
+the SSD scan) run on the card. Trained-actor policies come with the
+policies slice of the port.
 
+    python -m repro_torch.launch.serve --requests 32 --servers 3
     python -m repro_torch.launch.serve --requests 4096 --servers 64 \
         --chunk 256 --no-execute
     python -m repro_torch.launch.serve --requests 4096 --servers 16 \
@@ -33,15 +38,18 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import get_arch, reduced
 from repro_torch.core import batch_router
 from repro_torch.core.catalog import build_catalog
 from repro_torch.core.router import CLOUD_CELL, EdgeServer
 from repro_torch.device import resolve_device
+from repro_torch.models import lm
 from repro_torch.workloads import compile_scenario, get_scenario, list_scenarios
 
 #: the edge-suitable (small) members of the catalogue that serve routes to
 EDGE_ARCHS = ["smollm_135m", "starcoder2_3b", "mamba2_2p7b",
               "musicgen_medium"]
+PROMPT_LEN = 8  # tokens of each executed request's (zero) prompt
 
 
 def make_fleet(n_servers: int, catalog, flops=197e12, slots=2, cell=0,
@@ -107,6 +115,26 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def generate(cfg, params, n_gen: int, device):
+    """One routed request, as the reference serves it: batch 1, a zero
+    prompt of ``PROMPT_LEN`` tokens (audio: ``num_codebooks`` per step),
+    prefill, the prefill cache seated in a cache sized for the whole
+    generation, then ``n_gen`` greedy decode steps. Returns the ids."""
+    prompt_len = PROMPT_LEN
+    shape = (1, prompt_len)
+    if cfg.modality == "audio":
+        shape += (cfg.num_codebooks,)
+    prompt = torch.zeros(shape, dtype=torch.long, device=device)
+    ids, _, cache = lm.prefill(params, prompt, cfg)
+    full = lm.seat_cache(
+        lm.init_cache(cfg, 1, prompt_len + n_gen, device=device), cache)
+    tok, out = ids[:, -1:], []
+    for t in range(n_gen):
+        tok, _, full = lm.decode_step(params, full, tok, prompt_len + t, cfg)
+        out.append(tok)
+    return torch.cat(out, dim=1) if out else tok[:, :0]
+
+
 def serve(num_requests=32, n_servers=3, policy="greedy", execute=True, seed=0,
           gen_tokens=8, n_cells=1, drain_rate=0.0, arrival_rate=None,
           chunk=None, scenario="steady", device=None, speculative=True,
@@ -117,13 +145,9 @@ def serve(num_requests=32, n_servers=3, policy="greedy", execute=True, seed=0,
 
     ``device=None`` runs on the CUDA card and raises without one;
     ``device="cpu"`` runs the plain PyTorch path. ``speculative=False``
-    forces the chunked path's plain correction loop."""
-    if execute:
-        raise NotImplementedError(
-            "serve(execute=True) runs the routed requests through the LM "
-            "zoo, which comes with the execute slice of the port; pass "
-            "execute=False (CLI: --no-execute) to route only"
-        )
+    forces the chunked path's plain correction loop. ``execute=True``
+    generates every routed request after the route (``generate``); that
+    time shows only in ``wall_s``, as in the reference."""
     device = resolve_device(device)
     catalog = build_catalog(EDGE_ARCHS)
     multicell = n_cells > 1
@@ -136,6 +160,14 @@ def serve(num_requests=32, n_servers=3, policy="greedy", execute=True, seed=0,
     fleet_params, fleet_state = batch_router.fleet_from_servers(
         fleet, catalog, dtype=torch.float32, device=device)
     policy = resolve_policy_flag(policy)
+
+    # local reduced models actually generate tokens for routed requests
+    models = {}
+    if execute:
+        for e in catalog:
+            cfg = reduced(get_arch(e.name))
+            gen = torch.Generator().manual_seed(e.index)
+            models[e.index] = (cfg, lm.init_params(gen, cfg).to(device))
 
     # the whole stream — arrival stamps, model popularity, cells, prompt
     # sizes — compiles from (ScenarioSpec, seed): reproducible end to end
@@ -163,6 +195,11 @@ def serve(num_requests=32, n_servers=3, policy="greedy", execute=True, seed=0,
     )
     _sync(device)
     route_s = time.perf_counter() - t0
+
+    if execute:
+        for m, n_gen in zip(reqs.model.tolist(), reqs.gen_tokens.tolist()):
+            generate(*models[m], int(n_gen), device)
+        _sync(device)
 
     # the cloud column is appended last when the fleet is multicell
     stats = batch_router.stats(

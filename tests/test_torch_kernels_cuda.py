@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import flash_attention, flash_decode, ref
+from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels import route_score as kernel
+from repro_torch.kernels import ssd_scan
 
 CASES = {  # name -> (B, N, K, cells, spill, base, eta/beta)
     "below-block": (5, 3, 4, 0, False, False, False),
@@ -81,3 +83,118 @@ def test_route_score_kernel_matches_plain_version(case, dtype):
                                    rtol=2**-7, atol=0)
     else:  # no contraction, same grouping: bitwise
         assert torch.equal(got, expect)
+
+
+# ========================= the LM-plane kernels ==============================
+# Tolerances: the JAX package's own kernel tests' (float32 2e-5, bf16 2e-2;
+# the SSD scan 5e-4 / 5e-2): the kernels sum in another order than their
+# plain versions, and round to bf16 once at the end like them.
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+def _randn(rng, shape, dtype):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                           device="cuda").to(getattr(torch, dtype))
+
+
+def _check(got, expect, tol):
+    torch.cuda.synchronize()
+    assert got.dtype == expect.dtype and got.shape == expect.shape
+    torch.testing.assert_close(got.float(), expect.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 8, 256), (3, 5, 7, 64), (2048, 576),
+                                   (4, 100), (1, 3072)])
+def test_rmsnorm_kernel_matches_plain_version(shape, dtype):
+    _needs_card()
+    rng = np.random.default_rng(sum(shape))
+    x = _randn(rng, shape, dtype)
+    scale = _randn(rng, shape[-1:], dtype)
+    before = rmsnorm_kernel.rmsnorm.launches
+    got = rmsnorm_kernel.rmsnorm(x, scale)
+    assert rmsnorm_kernel.rmsnorm.launches == before + 1
+    _check(got, ref.rmsnorm_ref(x, scale), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,window,q_offset", [
+    (1, 8, 8, 4, 2, 64, 0, 0),          # a serve prompt at reduced()
+    (2, 37, 37, 6, 2, 64, 0, 0),        # ragged S
+    (1, 100, 100, 4, 4, 128, 16, 0),    # ragged S + window
+    (1, 128, 256, 4, 4, 64, 0, 128),    # q_offset
+    (2, 130, 130, 24, 2, 128, 0, 0),    # rep 12 (starcoder2-3b heads)
+    (1, 64, 64, 8, 8, 64, 0, 0),        # rep 1
+])
+def test_flash_attention_kernel_matches_plain_version(b, sq, sk, h, kv, d,
+                                                      window, q_offset, dtype):
+    _needs_card()
+    rng = np.random.default_rng(sq + h)
+    q = _randn(rng, (b, sq, h, d), dtype)
+    k = _randn(rng, (b, sk, kv, d), dtype)
+    v = _randn(rng, (b, sk, kv, d), dtype)
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, window=window,
+                                          q_offset=q_offset)
+    assert flash_attention.flash_attention.launches == before + 1
+    _check(got, ref.attention_ref(q, k, v, window=window, q_offset=q_offset),
+           TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,d,pos,window", [
+    (1, 16, 4, 2, 64, 8, 0),            # serve: prompt 8 + 8 decoded
+    (2, 1024, 8, 2, 64, 1023, 0),
+    (2, 1000, 8, 8, 64, 500, 0),        # ragged cache, middle slot
+    (1, 2048, 4, 2, 128, 2047, 512),    # window
+    (1, 512, 4, 4, 64, 0, 0),           # first token
+    (4, 544, 24, 2, 128, 543, 0),       # rep 12
+])
+def test_flash_decode_kernel_matches_plain_version(b, s, h, kv, d, pos,
+                                                   window, dtype):
+    _needs_card()
+    rng = np.random.default_rng(pos + s)
+    q = _randn(rng, (b, 1, h, d), dtype)
+    k = _randn(rng, (b, s, kv, d), dtype)
+    v = _randn(rng, (b, s, kv, d), dtype)
+    before = flash_decode.flash_decode.launches
+    got = flash_decode.flash_decode(q, k, v, pos, window=window)
+    assert flash_decode.flash_decode.launches == before + 1
+    _check(got, ref.decode_attention_ref(q, k, v, pos, window=window),
+           TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 8, 16, 32, 32, 16),             # a serve prompt at reduced()
+    (2, 128, 4, 32, 16, 32),
+    (2, 96, 4, 32, 16, 32),             # ragged S
+    (1, 128, 8, 16, 8, 16),             # N below one thread's columns
+    (1, 512, 80, 64, 128, 256),         # mamba2-2.7b full width
+])
+def test_ssd_kernel_matches_plain_version(b, s, h, p, n, chunk, dtype):
+    _needs_card()
+    rng = np.random.default_rng(s + h)
+    x = _randn(rng, (b, s, h, p), dtype)
+    dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), "float32"))
+    a_log = _randn(rng, (h,), "float32") * 0.5
+    bb = _randn(rng, (b, s, n), dtype)
+    cc = _randn(rng, (b, s, n), dtype)
+    d_skip = torch.ones(h, device="cuda")
+    before = ssd_scan.ssd.launches
+    y, state = ssd_scan.ssd(x, dt, a_log, bb, cc, d_skip)
+    assert ssd_scan.ssd.launches == before + 1
+    y_ref, state_ref = ref.ssd_chunked_ref(x, dt, a_log, bb, cc, d_skip,
+                                           chunk=chunk)
+    _check(y, y_ref, SSD_TOL[dtype])
+    _check(state, state_ref, SSD_TOL[dtype])

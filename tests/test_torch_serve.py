@@ -1,22 +1,32 @@
-"""The port's route-only serving vs the JAX package's, plus its contracts.
+"""The port's serving vs the JAX package's, plus its contracts.
 
 ``serve(..., execute=False, device="cpu")`` must return the reference's
 stats dict for the README's ``--no-execute`` commands (request counts
 cut to keep the run short): every rate is a ratio of integer counts and
 must be exact; ``mean_latency`` sums in another order and is held to
 ``rtol=1e-6``; the timing keys ``route_s``/``wall_s`` are set aside.
-Also: nothing in ``src/repro_torch/`` or ``chip_smoke.py`` imports JAX
-or the JAX package, and the entry points refuse to run without a card
-unless a device is named.
+With ``execute=True`` the routing stats stay those of the route-only
+run, and each routed request's greedy generation equals the reference's
+loop on the same parameters. Also: nothing in ``src/repro_torch/`` or
+``chip_smoke.py`` imports JAX or the JAX package, and the entry points
+refuse to run without a card unless a device is named.
 """
 import ast
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_arch as j_get_arch
+from repro.configs import reduced as j_reduced
 from repro.launch import serve as rserve
+from repro.models import lm as j_lm
+from repro_torch.configs import get_arch, reduced
 from repro_torch.launch import serve as tserve
+from repro_torch.models import convert
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -83,6 +93,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
+def test_port_calls_no_library_kernel():
+    """The port's kernels are its own: no fused PyTorch attention or norm,
+    no cuDNN, no torch.compile anywhere in the package (chip_smoke.py may
+    time the first two as yardsticks)."""
+    banned = ("scaled_dot_product_attention", "rms_norm", "cudnn",
+              "torch.compile")
+    for path in sorted((REPO / "src" / "repro_torch").rglob("*.py")):
+        text = path.read_text()
+        hits = [b for b in banned if b in text]
+        assert not hits, f"{path.relative_to(REPO)} calls {hits}"
+
+
 def test_entry_points_need_a_card_or_a_named_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -94,9 +116,52 @@ def test_entry_points_need_a_card_or_a_named_device(monkeypatch):
                         device="cpu")["requests"] == 8
 
 
+def _routing_stats(stats):
+    for timing in ("route_s", "wall_s"):
+        assert stats.pop(timing) >= 0.0
+    return stats
+
+
+def test_execute_keeps_the_routing_stats():
+    kw = dict(num_requests=8, gen_tokens=2)
+    executed = tserve.serve(execute=True, device="cpu", **kw)
+    assert executed["wall_s"] >= executed["route_s"]
+    executed = _routing_stats(executed)
+    routed = _routing_stats(tserve.serve(execute=False, device="cpu", **kw))
+    ref = _routing_stats(rserve.serve(execute=False, **kw))
+    assert executed == routed
+    assert executed.keys() == ref.keys()
+    assert executed.pop("mean_latency") == pytest.approx(
+        ref.pop("mean_latency"), rel=1e-6, abs=0.0)
+    assert executed == ref
+
+
+@pytest.mark.parametrize("arch", tserve.EDGE_ARCHS)
+def test_generate_matches_the_reference_loop(arch):
+    """serve's per-request generation (zero prompt, seated cache, greedy
+    decode) against the reference's loop in ``repro.launch.serve.serve``
+    on the same parameters."""
+    jcfg, cfg = j_reduced(j_get_arch(arch)), reduced(get_arch(arch))
+    jp = jax.jit(lambda k: j_lm.init_params(k, jcfg))(jax.random.key(1))
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jp), cfg)
+    n_gen, p = 3, tserve.PROMPT_LEN
+    got = tserve.generate(cfg, params, n_gen, torch.device("cpu"))
+
+    shape = (1, p, cfg.num_codebooks) if cfg.modality == "audio" else (1, p)
+    ids, _, cache = j_lm.prefill(jp, jnp.zeros(shape, jnp.int32), jcfg)
+    full = j_lm.init_cache(jcfg, 1, p + n_gen)
+    cache = jax.tree.map(lambda d, s: jnp.pad(
+        s, [(0, a - b) for a, b in zip(d.shape, s.shape)]).astype(d.dtype),
+        full, cache)
+    step = jax.jit(lambda p_, c, t, pos: j_lm.decode_step(p_, c, t, pos, jcfg))
+    tok, expect = ids[:, -1:], []
+    for t in range(n_gen):
+        tok, _, cache = step(jp, cache, tok, jnp.int32(p + t))
+        expect.append(np.asarray(tok))
+    assert np.array_equal(got.numpy(), np.concatenate(expect, axis=1))
+
+
 def test_unported_parts_say_which_slice_brings_them():
-    with pytest.raises(NotImplementedError, match="execute slice"):
-        tserve.serve(num_requests=8, device="cpu")
     with pytest.raises(SystemExit, match="policies slice"):
         tserve.serve(num_requests=8, execute=False, device="cpu",
                      policy="actor:some/ckpt")
