@@ -8,7 +8,8 @@ Run from the root of a checkout with one CUDA card:
 Phases, one JSON line each (after the card's name and power limit):
 
 1. build every CUDA kernel of the port from ``src/repro_torch/kernels/
-   csrc``, one ``nvcc`` per source, all started together;
+   csrc``, one ``nvcc`` per source, all started together, and print each
+   compiled kernel function's registers and spills (``-Xptxas -v``);
 2. hold ``route_score`` against its plain PyTorch version on the card, at
    the shapes route-only serving gives it and on one large panel: bitwise
    in float32 and float64, the same ``+inf`` set, bf16 within one bf16 ulp
@@ -24,10 +25,11 @@ Phases, one JSON line each (after the card's name and power limit):
 4. hold each LM-plane kernel (rmsnorm, flash attention, flash decode, the
    SSD scan) against its plain version on the card, in float32 and bf16,
    at the shapes execute-serving gives it and at the full widths of the
-   edge archs, at the JAX package's kernel-test tolerances (float32 2e-5,
-   bf16 2e-2; the SSD scan 5e-4 / 5e-2); time the kernel, the plain
-   version and one PyTorch library call where there is one, and compute
-   the bound;
+   edge archs (flash decode also at batch 1, as serving decodes, with the
+   number of key splits the wrapper plans for each case), at the JAX
+   package's kernel-test tolerances (float32 2e-5, bf16 2e-2; the SSD scan
+   5e-4 / 5e-2); time the kernel, the plain version and one PyTorch
+   library call where there is one, and compute the bound;
 5. LM parity: each edge arch at ``reduced()``, the same weights on the
    card and on the CPU, a prefill of 8 tokens and 8 teacher-forced decode
    steps, every step's logits within atol=rtol=1e-4;
@@ -40,7 +42,8 @@ Phases, one JSON line each (after the card's name and power limit):
 8. a ``kernels`` line with each kernel's launches on its main path (the
    fleet-scale speculative serve for ``route_score``, execute-serving for
    the others), its error against the plain version, its time, the plain
-   version's time, the library call's time and its bound;
+   version's time, the library call's time and its bound, and beside them
+   the same numbers at one full-width bf16 case (``FULL_CASE``);
 9. the last line, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32: TF32 is off for cuBLAS and
@@ -51,6 +54,8 @@ from __future__ import annotations
 
 import copy
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -82,6 +87,8 @@ PATHS = {"scan": dict(chunk=None),
          "correction": dict(chunk=CHUNK, speculative=False),
          "speculative": dict(chunk=CHUNK, speculative=True)}
 MAIN_PATH = ("fleet-64", "speculative")
+FULL_CASE = {"rmsnorm": "rows2048-d576", "flash_attention": "smollm-s512",
+             "flash_decode": "smollm-cache544-pos543", "ssd": "mamba2-s512"}
 
 
 def emit(obj):
@@ -110,12 +117,41 @@ def phase_device(torch, cuda_build):
     t0 = time.perf_counter()
     built = cuda_build.build_all(KERNELS)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {k: {"compile_s": s, "library": str(p.relative_to(ROOT))}
+          "kernels": {k: {"compile_s": s, "library": str(p.relative_to(ROOT)),
+                          "ptxas": ptxas_usage(p.with_suffix(".log"))}
                       for k, (p, s) in built.items()},
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "tf32_cudnn": torch.backends.cudnn.allow_tf32})
+
+
+def ptxas_usage(log_path):
+    """Registers and spill bytes of each kernel function in a build log
+    (``-Xptxas -v``), names demangled by ``c++filt`` where it exists."""
+    text = log_path.read_text() if log_path.is_file() else ""
+    rows = []
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            rows.append({"function": m.group(1)})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and rows:
+            rows[-1].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r["function"] for r in rows),
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+        for r, n in zip(rows, names):
+            r["function"] = (n.replace("(anonymous namespace)::", "")
+                             .split("(")[0])
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -380,9 +416,13 @@ def nbytes_of(*tensors):
 
 def lm_cases(np, torch, F, ref, ops):
     """(kernel, case, dtype, kernel call, plain call, library call or None,
-    bound (ms, by), tolerance): execute-serving's shapes first (float32,
-    ``reduced()``), then the edge archs' full widths in float32 and bf16."""
+    bound (ms, by), tolerance, facts of the case): execute-serving's shapes
+    first (float32, ``reduced()``), then the edge archs' full widths in
+    float32 and bf16."""
+    from repro_torch.kernels.flash_decode import plan_splits
+
     rng = np.random.default_rng(12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(shape, dt):
         return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
@@ -404,7 +444,7 @@ def lm_cases(np, torch, F, ref, ops):
                    lambda x=x, s=scale: ops.rmsnorm(x, s),
                    lambda x=x, s=scale: ref.rmsnorm_ref(x, s),
                    lambda x=x, s=scale: F.rms_norm(x, s.shape, s, eps=1e-6),
-                   bound, LM_TOL[dt])
+                   bound, LM_TOL[dt], {})
     # ---- flash attention: serve prompt; 4 x 512 prefill per arch's heads
     attn = [("serve", 1, 8, (4, 2, 64), 0, ("float32",))]
     attn += [(f"{a}-s512", FULL_BATCH, FULL_PROMPT, hd, 0, both)
@@ -433,15 +473,18 @@ def lm_cases(np, torch, F, ref, ops):
                        q, k, v, window=w),
                    lambda q=q, k=k, v=v, w=window: ref.attention_ref(
                        q, k, v, window=w),
-                   library, bound, LM_TOL[dt])
+                   library, bound, LM_TOL[dt], {})
     # ---- flash decode: serve's 16-slot cache; 16 and 544 slots per arch,
-    # the query at the last and at a middle slot
+    # the query at the last and at a middle slot; batch 1 at 544 slots
     dec = [("serve", 1, 16, 8, (4, 2, 64), ("float32",))]
+    long_cache = FULL_PROMPT + FULL_DECODE
     for a, hd in heads.items():
-        for slots in (16, FULL_PROMPT + FULL_DECODE):
+        for slots in (16, long_cache):
             for pos in (slots - 1, slots // 2):
                 dec.append((f"{a}-cache{slots}-pos{pos}", FULL_BATCH, slots,
                             pos, hd, both))
+        dec.append((f"{a}-b1-cache{long_cache}-pos{long_cache - 1}", 1,
+                    long_cache, long_cache - 1, hd, ("bfloat16",)))
     for case, b, slots, pos, (h, kv, d), dtypes in dec:
         for dt in dtypes:
             q = randn((b, 1, h, d), dt)
@@ -456,11 +499,13 @@ def lm_cases(np, torch, F, ref, ops):
                     q.transpose(1, 2), k[:, :pos + 1].transpose(1, 2),
                     v[:, :pos + 1].transpose(1, 2), enable_gqa=True)
 
+            splits = plan_splits(b, kv, *ref.decode_key_range(slots, pos),
+                                 sms=sms)[2]
             yield ("flash_decode", case, dt,
                    lambda q=q, k=k, v=v, p=pos: ops.decode_attention(q, k, v, p),
                    lambda q=q, k=k, v=v, p=pos: ref.decode_attention_ref(
                        q, k, v, p),
-                   library, bound, LM_TOL[dt])
+                   library, bound, LM_TOL[dt], {"splits": splits})
     # ---- ssd: serve prompt at reduced(); mamba2-2.7b's width, S 512 and 8
     for case, (b, s, h, p, n, chunk), dtypes in (
             ("serve", (1, 8, 16, 32, 32, 16), ("float32",)),
@@ -479,14 +524,14 @@ def lm_cases(np, torch, F, ref, ops):
             yield ("ssd", case, dt,
                    lambda a=args, c=chunk: ops.ssd(*a, chunk=c),
                    lambda a=args, c=chunk: ref.ssd_chunked_ref(*a, chunk=c),
-                   None, bound, SSD_TOL[dt])
+                   None, bound, SSD_TOL[dt], {})
 
 
 def phase_lm_kernels(np, torch, F, ref, ops):
     flush = torch.empty(2**28, dtype=torch.float32, device="cuda")  # 1 GiB
     results = {}
-    for name, case, dt, kernel_fn, plain_fn, library_fn, bound, tol in \
-            lm_cases(np, torch, F, ref, ops):
+    for name, case, dt, kernel_fn, plain_fn, library_fn, bound, tol, facts \
+            in lm_cases(np, torch, F, ref, ops):
         got, expect = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -509,7 +554,7 @@ def phase_lm_kernels(np, torch, F, ref, ops):
                "plain_ms": time_cold_ms(torch, plain_fn, iters, flush),
                "library_ms": (None if library_fn is None else
                               time_cold_ms(torch, library_fn, iters, flush)),
-               "bound_ms": bound[0], "bound_by": bound[1]}
+               "bound_ms": bound[0], "bound_by": bound[1], **facts}
         emit(res)
         results[(name, case, dt)] = res
     return results
@@ -635,12 +680,11 @@ def phase_execute_serve(torch, serve_mod, counters):
 
 def kernel_entry(name, source, replaces, launches, results):
     """The ``kernels`` line's entry: execute-serving's case for the times,
-    the largest float32 and bf16 errors over all cases, and the first
-    full-width bf16 case beside it."""
+    the largest float32 and bf16 errors over all cases, and the full-width
+    bf16 case ``FULL_CASE[name]`` beside it."""
     mine = {k: r for k, r in results.items() if k[0] == name}
     main = next(r for (n, c, d), r in mine.items() if c == "serve")
-    full = next(r for (n, c, d), r in mine.items()
-                if c != "serve" and d == "bfloat16")
+    full = mine[(name, FULL_CASE[name], "bfloat16")]
     keys = ("case", "dtype", "shape", "ms", "call_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")
     return {
@@ -654,7 +698,7 @@ def kernel_entry(name, source, replaces, launches, results):
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "call_ms": main["call_ms"],
         "shape": main["shape"], "dtype": main["dtype"],
-        "full_width": {k: full[k] for k in keys},
+        "full_width": {k: full[k] for k in keys + ("splits",) if k in full},
     }
 
 

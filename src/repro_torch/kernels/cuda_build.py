@@ -23,13 +23,16 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: Flags of one kernel on top of ``NVCC_FLAGS``. route_score builds with
 #: --fmad=false: no a*b+c contraction, so it rounds like its plain version
 #: bit for bit (it also spells its arithmetic with _rn intrinsics). The
 #: LM-plane kernels are held to a tolerance and keep nvcc's FMAs.
-KERNEL_FLAGS = {"route_score": ("--fmad=false",)}
+#: flash_attention links libcuda for cuTensorMapEncodeTiled (the
+#: TMA maps of its bf16 kernel).
+KERNEL_FLAGS = {"route_score": ("--fmad=false",),
+                "flash_attention": ("-lcuda",)}
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:
@@ -60,7 +63,9 @@ def build_all(names) -> dict[str, tuple[Path, float]]:
     """Compile every ``csrc/<name>.cu`` whose library is missing, one
     ``nvcc`` each, all started together; returns, for each name, the
     library path and the seconds until its compile ended (0.0 when
-    reused). Raises with the compiler's output if any build fails."""
+    reused). The compiler's output (``-Xptxas -v``: registers, shared
+    memory and spills of each kernel) is kept beside the library as
+    ``<library>.log``. Raises with that output if any build fails."""
     out, running = {}, {}
     t0 = time.perf_counter()
     for name in names:
@@ -70,8 +75,9 @@ def build_all(names) -> dict[str, tuple[Path, float]]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        # the source before the flags: a library flag follows what needs it
+        cmd = [nvcc_path(), "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *nvcc_flags(name)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, cmd, lib, tmp)
@@ -82,6 +88,8 @@ def build_all(names) -> dict[str, tuple[Path, float]]:
             failed.append(f"nvcc failed to build {name} (exit "
                           f"{proc.returncode}):\n{' '.join(cmd)}\n{log}")
             continue
+        # ptxas -v: each kernel's registers, shared memory and spills
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial
         out[name] = (lib, time.perf_counter() - t0)
     if failed:

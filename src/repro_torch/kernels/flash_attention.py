@@ -1,11 +1,14 @@
 """Causal GQA flash attention (forward): the CUDA kernel's wrapper.
 
-The kernel (``csrc/flash_attention.cu``) replaces the JAX package's
-Pallas TPU kernel ``repro/kernels/flash_attention.py``: one block per
-(16-query tile, q head, batch) loops over 32-key tiles with an online
-softmax in float32, reading the (B, S, heads, D) tensors through their
-strides, with any Sq and Sk. Its plain version is ``ref.attention_ref``.
-Forward only: the backward comes with LM training.
+The kernels (``csrc/flash_attention.cu``) replace the JAX package's
+Pallas TPU kernel ``repro/kernels/flash_attention.py``, reading the (B, S,
+heads, D) tensors through their strides, with any Sq and Sk, and an online
+softmax in float32. bf16 runs on the tensor cores: one block per (64-query
+tile, q head, batch), QK^T and PV as ``wgmma`` products, K/V tiles staged
+by TMA in a ring of two. float32 runs on the CUDA cores (float32 ``wgmma``
+would be TF32): one block per (16-query tile, q head, batch) over 32-key
+tiles. Their plain version is ``ref.attention_ref``. Forward only: the
+backward comes with LM training.
 
 This wrapper takes CUDA tensors only (``ops.attention`` sends CPU tensors
 to the plain version), checks them, allocates the output and launches on
@@ -68,6 +71,16 @@ def check_qkv(name, q, k, v, *, sq=None):
     return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
 
 
+def aligned16(t):
+    """``t`` if its base and its batch, seq and head strides sit on 16-byte
+    boundaries (the kernels' 16-byte copies and TMA maps need it), else a
+    contiguous copy. The stride of a size-1 axis is never used."""
+    size = t.element_size()
+    ok = t.data_ptr() % 16 == 0 and all(
+        n == 1 or st * size % 16 == 0 for n, st in zip(t.shape[:3], t.stride()))
+    return t if ok else t.contiguous()
+
+
 def strides_arg(*tensors):
     """(batch, seq, head) element strides of each tensor, as a C array."""
     vals = [s for t in tensors for s in t.stride()[:3]]
@@ -79,6 +92,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D); float32 or bf16, D in
     {64, 128}. Same arguments and result as ``ref.attention_ref``."""
     q, k, v = check_qkv("flash_attention", q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)

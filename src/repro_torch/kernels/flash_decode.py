@@ -1,15 +1,20 @@
 """Single-query attention over a KV cache: the CUDA kernel's wrapper.
 
 The kernel (``csrc/flash_decode.cu``) replaces the JAX package's Pallas
-TPU kernel ``repro/kernels/flash_decode.py``: one block per (kv group,
-batch), one warp per q head of the group, a loop over the 32-key tiles
-that hold keys ``j <= pos`` (and inside the window), online softmax in
-float32. Its plain version is ``ref.decode_attention_ref``.
+TPU kernel ``repro/kernels/flash_decode.py``. It is flash decoding: the
+visible keys are cut into ``splits`` contiguous pieces of whole 64-key
+tiles (``plan_splits``, on the host), one block per (split, kv group,
+batch) reads its piece with 16-byte copies and writes a float32 partial
+(m, l, acc), and a second small kernel merges the pieces. With one split
+the first kernel writes the output itself and there is one launch. Its
+plain version is ``ref.decode_attention_ref``; ``ref.decode_attention_
+split_ref`` is the same two passes in plain tensor code.
 
 This wrapper takes CUDA tensors only (``ops.decode_attention`` sends CPU
-tensors to the plain version) and a host ``pos``, checks them, allocates
-the output and launches on PyTorch's current stream.
-``flash_decode.launches`` counts launches.
+tensors to the plain version) and a host ``pos``, checks them, plans the
+split, allocates the output and the workspace and launches on PyTorch's
+current stream. ``flash_decode.launches`` counts calls that launched:
+one per call, whatever the split.
 """
 from __future__ import annotations
 
@@ -20,11 +25,11 @@ import operator
 
 import torch
 
-from repro_torch.kernels import cuda_build
-from repro_torch.kernels.flash_attention import (DTYPE_CODES, check_qkv,
-                                                 strides_arg)
+from repro_torch.kernels import cuda_build, ref
+from repro_torch.kernels.flash_attention import (DTYPE_CODES, aligned16,
+                                                 check_qkv, strides_arg)
 
-_MAX_REP = 16  # q heads per kv group: warps of one block
+_MAX_REP = 16  # q heads per kv group the kernel takes
 
 
 @functools.lru_cache(maxsize=None)
@@ -32,13 +37,22 @@ def _library():
     lib = cuda_build.load("flash_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_decode_launch.argtypes = [
-        i, p, p, p, p,            # dtype, q, k, v, out
-        i, i, i, i, i,            # B, S, H, KV, D
-        p, i, i,                  # strides, pos, window
+        i, p, p, p, p, p,         # dtype, q, k, v, out, workspace
+        i, i, i, i,               # B, H, KV, D
+        p, i, i, i, i, i,         # strides, k_first, k_end, chunk, splits, win_lo
         ctypes.c_float, p,        # scale, stream
     ]
     lib.flash_decode_launch.restype = i
     return lib
+
+
+def plan_splits(b: int, kv: int, k_begin: int, k_end: int, *, sms: int):
+    """The split of the visible keys [k_begin, k_end) across blocks: as many
+    pieces as make B * KV * splits fill ``sms`` SMs at least once, but no
+    piece shorter than one tile and none empty. Returns ``(first key,
+    chunk, splits)`` as ``ref.split_keys`` does: piece i is ``[first + i *
+    chunk, min(first + (i + 1) * chunk, k_end))``."""
+    return ref.split_keys(k_begin, k_end, -(-sms // max(1, b * kv)))
 
 
 def flash_decode(q, k, v, pos: int, *, window: int = 0):
@@ -47,6 +61,7 @@ def flash_decode(q, k, v, pos: int, *, window: int = 0):
     float32 up to summation order; see the kernel's note on bf16)."""
     pos = operator.index(pos)
     q, k, v = check_qkv("flash_decode", q, k, v, sq=1)
+    k, v = aligned16(k), aligned16(v)
     b, _, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     if h // kv > _MAX_REP:
@@ -55,11 +70,17 @@ def flash_decode(q, k, v, pos: int, *, window: int = 0):
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    k_begin, k_end = ref.decode_key_range(s, pos, int(window))
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    first, chunk, splits = plan_splits(b, kv, k_begin, k_end, sms=sms)
+    part = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     with torch.cuda.device(q.device):
         rc = _library().flash_decode_launch(
             DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, s, h, kv, d, strides_arg(q, k, v, out), pos,
-            int(window), 1.0 / math.sqrt(d),
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            b, h, kv, d, strides_arg(q, k, v, out), first, k_end, chunk,
+            splits, k_begin, 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("flash_decode", rc)
     flash_decode.launches += 1

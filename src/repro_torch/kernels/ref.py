@@ -146,6 +146,63 @@ def decode_attention_ref(q, k, v, pos: int, *, window=0):
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+DECODE_TILE = 64  # keys per tile of the decode kernel: a split is whole tiles
+
+
+def decode_key_range(s: int, pos: int, window: int = 0):
+    """[k_begin, k_end): the keys a decode query at ``pos`` sees in an
+    ``s``-slot cache (``j <= pos`` and, with a window, ``j > pos - window``)."""
+    k_begin = max(0, pos - window + 1) if window > 0 else 0
+    return k_begin, min(s, pos + 1)
+
+
+def split_keys(k_begin: int, k_end: int, splits: int, tile: int = DECODE_TILE):
+    """Cut the keys [k_begin, k_end) into at most ``splits`` contiguous
+    pieces of whole tiles: the first starts at ``k_begin`` rounded down to a
+    tile, each holds ``chunk`` keys (a multiple of ``tile``; the last may be
+    short) and none is empty. Returns (first key, chunk, number of pieces);
+    piece i is [first + i * chunk, min(first + (i + 1) * chunk, k_end))."""
+    first = k_begin // tile * tile
+    tiles = max(1, -(-(k_end - first) // tile))
+    per = -(-tiles // max(1, min(splits, tiles)))
+    return first, per * tile, -(-tiles // per)
+
+
+def decode_attention_split_ref(q, k, v, pos: int, splits: int, *, window=0):
+    """The decode kernel's two passes in plain tensor code: the visible keys
+    cut by ``split_keys`` into at most ``splits`` pieces, each piece's
+    float32 (m, l, acc) with masked probabilities exactly 0, then the merge
+    ``m = max m_i; l = sum l_i e^(m_i - m); acc likewise; acc / max(l,
+    1e-30)``. Same arguments and result as ``decode_attention_ref``; as
+    there (and in the kernel), the probabilities are rounded to the cache's
+    type for the PV product, and ``l`` sums them unrounded."""
+    b, _, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    qg = q[:, 0].reshape(b, kv, h // kv, d).float()
+    k_begin, k_end = decode_key_range(s, pos, window)
+    first, chunk, n = split_keys(k_begin, k_end, splits)
+    parts = []
+    for i in range(n):
+        lo, hi = first + i * chunk, min(first + (i + 1) * chunk, k_end)
+        kj = torch.arange(lo, max(lo, hi), device=q.device)
+        scores = torch.einsum("bgrd,bkgd->bgrk", qg,
+                              k[:, lo:hi].float()) * (1.0 / math.sqrt(d))
+        vis = kj >= k_begin
+        scores = torch.where(vis, scores, NEG_INF)
+        m = scores.amax(dim=-1, keepdim=True) if kj.numel() else \
+            torch.full((b, kv, h // kv, 1), NEG_INF, device=q.device)
+        p = torch.where(vis, torch.exp(scores - m), 0.0)
+        acc = torch.einsum("bgrk,bkgd->bgrd", p.to(v.dtype).float(),
+                           v[:, lo:hi].float())
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+    m = torch.stack([pm for pm, _, _ in parts]).amax(dim=0)
+    w = [torch.exp(pm - m) for pm, _, _ in parts]  # 0 for an all-masked piece
+    l = sum(wi * pl for wi, (_, pl, _) in zip(w, parts))
+    acc = sum(wi * pa for wi, (_, _, pa) in zip(w, parts))
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
 # =============================== Mamba2 SSD ===================================
 def ssd_naive_ref(x, dt, a_log, b, c, d_skip):
     """Recurrent SSD oracle, float32, sequential over S.

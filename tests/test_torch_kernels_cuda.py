@@ -133,6 +133,12 @@ def test_rmsnorm_kernel_matches_plain_version(shape, dtype):
     (1, 128, 256, 4, 4, 64, 0, 128),    # q_offset
     (2, 130, 130, 24, 2, 128, 0, 0),    # rep 12 (starcoder2-3b heads)
     (1, 64, 64, 8, 8, 64, 0, 0),        # rep 1
+    (2, 100, 150, 9, 3, 64, 0, 50),     # Sq, Sk not multiples of 64
+    (1, 192, 192, 4, 2, 128, 0, 0),     # D 128: two 64-column panels
+    (1, 70, 198, 8, 2, 128, 0, 128),    # q_offset 128, ragged, D 128
+    (1, 256, 256, 24, 2, 128, 0, 0),    # rep 12 over whole tiles
+    (2, 300, 300, 9, 3, 64, 128, 0),    # window 128 crossing tile edges
+    (4, 512, 512, 9, 3, 64, 0, 0),      # smollm-135m's prefill, full width
 ])
 def test_flash_attention_kernel_matches_plain_version(b, sq, sk, h, kv, d,
                                                       window, q_offset, dtype):
@@ -149,23 +155,40 @@ def test_flash_attention_kernel_matches_plain_version(b, sq, sk, h, kv, d,
            TOL[dtype])
 
 
+DECODE_CASES = [  # B, S, H, KV, D, pos, window, cache layout
+    (1, 16, 4, 2, 64, 8, 0, "dense"),           # serve: prompt 8 + 8 decoded
+    (2, 1024, 8, 2, 64, 1023, 0, "dense"),
+    (2, 1000, 8, 8, 64, 500, 0, "dense"),       # ragged cache, middle slot
+    (1, 2048, 4, 2, 128, 2047, 512, "dense"),   # window
+    (1, 512, 4, 4, 64, 0, 0, "dense"),          # first token
+    (4, 544, 24, 2, 128, 543, 0, "dense"),      # rep 12
+    (1, 544, 9, 3, 64, 543, 0, "dense"),        # batch 1, many splits:
+    (1, 544, 24, 2, 128, 543, 0, "dense"),      # each edge arch's heads
+    (1, 544, 24, 24, 64, 543, 0, "dense"),
+    (4, 544, 24, 24, 64, 543, 0, "dense"),      # musicgen: rep 1
+    (1, 700, 8, 2, 64, 650, 100, "dense"),      # window starts inside a split
+    (1, 544, 9, 3, 64, 0, 0, "dense"),          # pos 0 at batch 1
+    (2, 544, 6, 2, 64, 400, 0, "slice"),        # the cache a strided slice
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,s,h,kv,d,pos,window", [
-    (1, 16, 4, 2, 64, 8, 0),            # serve: prompt 8 + 8 decoded
-    (2, 1024, 8, 2, 64, 1023, 0),
-    (2, 1000, 8, 8, 64, 500, 0),        # ragged cache, middle slot
-    (1, 2048, 4, 2, 128, 2047, 512),    # window
-    (1, 512, 4, 4, 64, 0, 0),           # first token
-    (4, 544, 24, 2, 128, 543, 0),       # rep 12
-])
+@pytest.mark.parametrize(
+    "b,s,h,kv,d,pos,window,layout", DECODE_CASES,
+    ids=["-".join(map(str, c[:7])) + ("-slice" if c[7] == "slice" else "")
+         for c in DECODE_CASES])
 def test_flash_decode_kernel_matches_plain_version(b, s, h, kv, d, pos,
-                                                   window, dtype):
+                                                   window, layout, dtype):
     _needs_card()
     rng = np.random.default_rng(pos + s)
     q = _randn(rng, (b, 1, h, d), dtype)
-    k = _randn(rng, (b, s, kv, d), dtype)
-    v = _randn(rng, (b, s, kv, d), dtype)
+    if layout == "slice":  # k, v: seq and head slices of one wider buffer
+        buf = _randn(rng, (b, s + 56, 2 * kv, d), dtype)
+        k, v = buf[:, :s, :kv], buf[:, :s, kv:]
+    else:
+        k = _randn(rng, (b, s, kv, d), dtype)
+        v = _randn(rng, (b, s, kv, d), dtype)
     before = flash_decode.flash_decode.launches
     got = flash_decode.flash_decode(q, k, v, pos, window=window)
     assert flash_decode.flash_decode.launches == before + 1
