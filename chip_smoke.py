@@ -26,16 +26,22 @@ Phases, one JSON line each (after the card's name and power limit):
    SSD scan) against its plain version on the card, in float32 and bf16,
    at the shapes execute-serving gives it and at the full widths of the
    edge archs (flash decode also at batch 1, as serving decodes, with the
-   number of key splits the wrapper plans for each case), at the JAX
-   package's kernel-test tolerances (float32 2e-5, bf16 2e-2; the SSD scan
-   5e-4 / 5e-2); time the kernel, the plain version and one PyTorch
-   library call where there is one, and compute the bound;
+   number of key splits the wrapper plans for each case; rmsnorm also at
+   a decode step's 4 rows; the SSD scan also at batch 4, at S 2048 and
+   with the model's own decay rates, and against its plain version in the
+   kernel's order, ``ref.ssd_tiled_ref``), at the JAX package's
+   kernel-test tolerances (float32 2e-5, bf16 2e-2; the SSD scan 5e-4 /
+   5e-2); time the kernel, the plain version and one PyTorch library call
+   where there is one, and compute the bound; then time rmsnorm's wide
+   rows with one, two and four warps a row;
 5. LM parity: each edge arch at ``reduced()``, the same weights on the
    card and on the CPU, a prefill of 8 tokens and 8 teacher-forced decode
    steps, every step's logits within atol=rtol=1e-4;
 6. full width: smollm-135m at its published config and mamba2-2.7b at
    full width (depth cut, printed), a prefill of 4 x 512 tokens and 32
-   decode steps; tokens/s, each kernel's launches, finite logits;
+   decode steps; tokens/s, each kernel's launches, finite logits, and one
+   more prefill under the profiler: the device's busy share and its
+   heaviest kernels;
 7. serving with execution: ``serve(execute=True)`` for 32 requests on 3
    servers, routing stats equal to the route-only run, every LM kernel
    launched;
@@ -422,29 +428,33 @@ def lm_cases(np, torch, F, ref, ops):
     from repro_torch.kernels.flash_decode import plan_splits
 
     rng = np.random.default_rng(12)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    later = np.random.default_rng(14)  # cases added later draw from here, so
+    sms = torch.cuda.get_device_properties(0).multi_processor_count  # the
+    # earlier cases keep their inputs
 
-    def randn(shape, dt):
-        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+    def randn(shape, dt, gen=rng):
+        return torch.as_tensor(gen.standard_normal(shape).astype(np.float32),
                                device="cuda").to(getattr(torch, dt))
 
     heads = {"smollm": (9, 3, 64), "starcoder2": (24, 2, 128),
              "musicgen": (24, 24, 64)}
     both = ("float32", "bfloat16")
     # ---- rmsnorm: serve (1, 8, 256); prefill rows 4*512 at each d_model
-    for case, shape, dtypes in (
-            [("serve", (1, 8, 256), ("float32",))]
-            + [(f"rows2048-d{d}", (FULL_BATCH * FULL_PROMPT, d), both)
-               for d in (576, 1536, 2560, 3072)]):
+    for case, shape, dtypes, gen in (
+            [("serve", (1, 8, 256), ("float32",), rng)]
+            + [(f"rows2048-d{d}", (FULL_BATCH * FULL_PROMPT, d), both, rng)
+               for d in (576, 1536, 2560, 3072)]
+            + [(f"rows4-d{d}", (FULL_BATCH, d), both, later)  # a decode step
+               for d in (576, 2560)]):
         for dt in dtypes:
-            x, scale = randn(shape, dt), randn(shape[-1:], dt)
+            x, scale = randn(shape, dt, gen), randn(shape[-1:], dt, gen)
             bound = bound_of(2 * nbytes_of(x) + nbytes_of(scale),
                              4 * x.numel(), PEAK_OPS["float32"])
             yield ("rmsnorm", case, dt,
                    lambda x=x, s=scale: ops.rmsnorm(x, s),
                    lambda x=x, s=scale: ref.rmsnorm_ref(x, s),
                    lambda x=x, s=scale: F.rms_norm(x, s.shape, s, eps=1e-6),
-                   bound, LM_TOL[dt], {})
+                   bound, LM_TOL[dt], {}, ())
     # ---- flash attention: serve prompt; 4 x 512 prefill per arch's heads
     attn = [("serve", 1, 8, (4, 2, 64), 0, ("float32",))]
     attn += [(f"{a}-s512", FULL_BATCH, FULL_PROMPT, hd, 0, both)
@@ -473,7 +483,7 @@ def lm_cases(np, torch, F, ref, ops):
                        q, k, v, window=w),
                    lambda q=q, k=k, v=v, w=window: ref.attention_ref(
                        q, k, v, window=w),
-                   library, bound, LM_TOL[dt], {})
+                   library, bound, LM_TOL[dt], {}, ())
     # ---- flash decode: serve's 16-slot cache; 16 and 544 slots per arch,
     # the query at the last and at a middle slot; batch 1 at 544 slots
     dec = [("serve", 1, 16, 8, (4, 2, 64), ("float32",))]
@@ -505,17 +515,34 @@ def lm_cases(np, torch, F, ref, ops):
                    lambda q=q, k=k, v=v, p=pos: ops.decode_attention(q, k, v, p),
                    lambda q=q, k=k, v=v, p=pos: ref.decode_attention_ref(
                        q, k, v, p),
-                   library, bound, LM_TOL[dt], {"splits": splits})
-    # ---- ssd: serve prompt at reduced(); mamba2-2.7b's width, S 512 and 8
-    for case, (b, s, h, p, n, chunk), dtypes in (
-            ("serve", (1, 8, 16, 32, 32, 16), ("float32",)),
-            ("mamba2-s512", (1, FULL_PROMPT, 80, 64, 128, 256), both),
-            ("mamba2-s8", (1, 8, 80, 64, 128, 256), both)):
-        for dt in dtypes:
-            x = randn((b, s, h, p), dt)
-            dtv = F.softplus(randn((b, s, h), "float32"))
-            a_log = randn((h,), "float32") * 0.5
-            bm, cm = randn((b, s, n), dt), randn((b, s, n), dt)
+                   library, bound, LM_TOL[dt], {"splits": splits}, ())
+    # ---- ssd: serve prompt at reduced(); mamba2-2.7b's width: S 512 and 8
+    # at batch 1; then S 512 at the full-width prefill's batch, S 2048, and
+    # S 512 with the model's own a_log = log U(1, 16) and large steps. The
+    # later cases' plain version runs chunks of 64, the kernel's: in float32
+    # at this width, and more with strong decay, the chunk-256 form is
+    # itself off the recurrence by about the 5e-4 tolerance (its cum runs
+    # over 256 positions in float32).
+    for case, (b, s, h, p, n, chunk), decay, gen in (
+            ("serve", (1, 8, 16, 32, 32, 16), "normal", rng),
+            ("mamba2-s512", (1, FULL_PROMPT, 80, 64, 128, 256), "normal", rng),
+            ("mamba2-s8", (1, 8, 80, 64, 128, 256), "normal", rng),
+            ("mamba2-s512-b4", (FULL_BATCH, FULL_PROMPT, 80, 64, 128, 64),
+             "normal", later),
+            ("mamba2-s2048", (1, 2048, 80, 64, 128, 64), "normal", later),
+            ("mamba2-s512-strong", (1, FULL_PROMPT, 80, 64, 128, 64),
+             "strong", later)):
+        for dt in (("float32",) if case == "serve" else both):
+            x = randn((b, s, h, p), dt, gen)
+            if decay == "strong":   # a*dt down to ~-70 a step
+                dtv = F.softplus(randn((b, s, h), "float32", gen) + 1.0)
+                a_log = torch.log(torch.as_tensor(
+                    gen.uniform(1.0, 16.0, h), dtype=torch.float32,
+                    device="cuda"))
+            else:
+                dtv = F.softplus(randn((b, s, h), "float32", gen))
+                a_log = randn((h,), "float32", gen) * 0.5
+            bm, cm = randn((b, s, n), dt, gen), randn((b, s, n), dt, gen)
             d_skip = torch.ones(h, device="cuda")
             args = (x, dtv, a_log, bm, cm, d_skip)
             bound = bound_of(2 * nbytes_of(x) + nbytes_of(dtv, bm, cm)
@@ -524,27 +551,36 @@ def lm_cases(np, torch, F, ref, ops):
             yield ("ssd", case, dt,
                    lambda a=args, c=chunk: ops.ssd(*a, chunk=c),
                    lambda a=args, c=chunk: ref.ssd_chunked_ref(*a, chunk=c),
-                   None, bound, SSD_TOL[dt], {})
+                   None, bound, SSD_TOL[dt], {},
+                   (("tiled", lambda a=args: ref.ssd_tiled_ref(*a)),))
 
 
 def phase_lm_kernels(np, torch, F, ref, ops):
     flush = torch.empty(2**28, dtype=torch.float32, device="cuda")  # 1 GiB
     results = {}
-    for name, case, dt, kernel_fn, plain_fn, library_fn, bound, tol, facts \
-            in lm_cases(np, torch, F, ref, ops):
-        got, expect = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
+    for (name, case, dt, kernel_fn, plain_fn, library_fn, bound, tol, facts,
+         also) in lm_cases(np, torch, F, ref, ops):
+        got = kernel_fn()
         got = got if isinstance(got, tuple) else (got,)
-        expect = expect if isinstance(expect, tuple) else (expect,)
-        err = 0.0
-        for g, e in zip(got, expect):
-            check(g.shape == e.shape and g.dtype == e.dtype,
-                  f"{name} {case}/{dt}: shape/type")
-            check(bool(torch.isfinite(g).all()),
-                  f"{name} {case}/{dt}: non-finite output")
-            err = max(err, float((g.float() - e.float()).abs().max()))
-            check(torch.allclose(g.float(), e.float(), atol=tol, rtol=tol),
-                  f"{name} {case}/{dt}: max abs err {err} beyond {tol}")
+        errs = []
+        for other in (plain_fn,) + tuple(fn for _, fn in also):
+            expect = other()
+            torch.cuda.synchronize()
+            expect = expect if isinstance(expect, tuple) else (expect,)
+            err = 0.0
+            for g, e in zip(got, expect):
+                check(g.shape == e.shape and g.dtype == e.dtype,
+                      f"{name} {case}/{dt}: shape/type")
+                check(bool(torch.isfinite(g).all()),
+                      f"{name} {case}/{dt}: non-finite output")
+                err = max(err, float((g.float() - e.float()).abs().max()))
+                check(torch.allclose(g.float(), e.float(), atol=tol, rtol=tol),
+                      f"{name} {case}/{dt}: max abs err {err} beyond {tol}")
+            errs.append(err)
+        err = errs[0]                      # against plain_fn, the timed one
+        if also:
+            facts = {**facts, "max_abs_err_vs": {
+                label: e for (label, _), e in zip(also, errs[1:])}}
         iters = 20
         res = {"phase": "lm_kernel", "kernel": name, "case": case,
                "dtype": dt, "shape": list(got[0].shape), "max_abs_err": err,
@@ -558,6 +594,37 @@ def phase_lm_kernels(np, torch, F, ref, ops):
         emit(res)
         results[(name, case, dt)] = res
     return results
+
+
+def phase_rmsnorm_layouts(np, torch, ref, rmsnorm_mod):
+    """The two layouts of a wide row, in one call: one warp a row (each lane
+    holding up to 16 vectors) against two and four warps a row meeting in
+    shared memory, at the prefill's widest rows (bf16, cold L2). The
+    wrapper keeps ``warps_per_row``'s choice; the others are timed here
+    through the C entry and held to the same tolerance."""
+    flush = torch.empty(2**28, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(13)
+    for d in (2560, 3072):
+        x = torch.as_tensor(rng.standard_normal((FULL_BATCH * FULL_PROMPT, d))
+                            .astype(np.float32), device="cuda").bfloat16()
+        scale = torch.as_tensor(rng.standard_normal(d).astype(np.float32),
+                                device="cuda").bfloat16()
+        expect = ref.rmsnorm_ref(x, scale).float()
+        ms = {}
+        for w in (1, 2, 4):
+            out = torch.empty_like(x)
+            rmsnorm_mod.launch(x, scale, out, 1e-6, w)
+            torch.cuda.synchronize()
+            check(torch.allclose(out.float(), expect, atol=LM_TOL["bfloat16"],
+                                 rtol=LM_TOL["bfloat16"]),
+                  f"rmsnorm layout w={w} d={d}: beyond tolerance")
+            ms[w] = time_cold_ms(
+                torch, lambda o=out, w=w: rmsnorm_mod.launch(x, scale, o, 1e-6, w),
+                20, flush)
+        emit({"phase": "rmsnorm_layout", "shape": list(x.shape),
+              "dtype": "bfloat16", "ms_by_warps_per_row": ms,
+              "kept": rmsnorm_mod.warps_per_row(x.shape[0], d,
+                                                x.element_size())})
 
 
 # --------------------------------------------------------------------------
@@ -641,6 +708,7 @@ def phase_full_width(np, torch, lm, configs, counters):
         for k in (["rmsnorm", "ssd"] if cfg.family == "ssm"
                   else ["rmsnorm", "flash_attention", "flash_decode"]):
             check(launches[k] > 0, f"full width {arch}: {k} never launched")
+        profile = prefill_profile(torch, lambda: lm.prefill(params, toks, cfg))
         emit({"phase": "full_width", "arch": arch, "dtype": cfg.param_dtype,
               "layers": cfg.num_layers,
               "depth_cut": (f"{published.num_layers} -> {cfg.num_layers} "
@@ -653,9 +721,37 @@ def phase_full_width(np, torch, lm, configs, counters):
               "prefill_tok_s": FULL_BATCH * FULL_PROMPT / (t1 - t0),
               "decode_tok_s": FULL_BATCH * FULL_DECODE / (t2 - t1),
               "launches": launches, "finite": finite,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+              "prefill_profile": profile})
         del params
         torch.cuda.empty_cache()
+
+
+def prefill_profile(torch, fn, top=6):
+    """One more prefill under torch.profiler (after the timed ones): its
+    host-clock time, the device time its kernels took (their sum: one
+    stream runs them one after another) and the kernels that took most.
+    Busy over wall is the device's busy share; the rest is the card
+    waiting for the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        kernels.append((us / 1e3, ev.count, ev.key[:80]))
+    kernels.sort(reverse=True)
+    busy = sum(ms for ms, _, _ in kernels)
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "busy_share": busy / (1e3 * wall),
+            "top": [[name, ms, n] for ms, n, name in kernels[:top]]}
 
 
 def phase_execute_serve(torch, serve_mod, counters):
@@ -731,6 +827,7 @@ def main():
     main_launches = phase_serve(torch, kernel, serve_mod)
     t_lm = time.perf_counter()
     lm_results = phase_lm_kernels(np, torch, F, ref, ops)
+    phase_rmsnorm_layouts(np, torch, ref, rmsnorm)
     phase_lm_parity(np, torch, lm, configs, serve_mod.EDGE_ARCHS)
     phase_full_width(np, torch, lm, configs, counters)
     exec_launches = phase_execute_serve(torch, serve_mod, counters)

@@ -74,11 +74,13 @@ def check_qkv(name, q, k, v, *, sq=None):
 def aligned16(t):
     """``t`` if its base and its batch, seq and head strides sit on 16-byte
     boundaries (the kernels' 16-byte copies and TMA maps need it), else a
-    contiguous copy. The stride of a size-1 axis is never used."""
+    contiguous copy in fresh memory (``contiguous()`` would hand back a
+    contiguous tensor whose base is off the boundary as it is). The stride
+    of a size-1 axis is never used."""
     size = t.element_size()
     ok = t.data_ptr() % 16 == 0 and all(
         n == 1 or st * size % 16 == 0 for n, st in zip(t.shape[:3], t.stride()))
-    return t if ok else t.contiguous()
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def strides_arg(*tensors):

@@ -270,6 +270,82 @@ def ssd_chunked_ref(x, dt, a_log, b, c, d_skip, chunk: int = 256):
     return y.to(x.dtype), state
 
 
+SSD_CHUNK = 64    # positions per chunk of the SSD kernel (one mma tile's M x 4)
+SSD_P_TILE = 64   # head-dim columns per block of the bf16 SSD kernel (float32:
+                  # 32); columns never mix, so the tile orders the work only
+
+
+def bf16_pair(t):
+    """A float32 tensor as the bf16 kernel feeds it to the tensor cores:
+    the sum of two bf16 values, hi = bf16(t) and lo = bf16(t - hi), back in
+    float32 (about 16 significant bits instead of bf16's 8)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+def ssd_tiled_ref(x, dt, a_log, b, c, d_skip):
+    """The SSD kernel's own order in plain tensor code: the sequence in
+    chunks of ``SSD_CHUNK`` positions (a ragged tail zero-filled: x, dt, b
+    and c are 0 there, so it adds nothing), the head dim in tiles of
+    ``SSD_P_TILE`` columns, each tile carrying its own (N, P_tile) float32
+    state from chunk to chunk. Per chunk, with cum the inclusive sum of
+    ``a * dt`` (each product float32; the sum float64 for float32 inputs,
+    so that the differences cum_i - cum_j keep float32's precision however
+    large cum grows, and float32 for bf16 inputs, whose tolerance is far
+    wider) and total its last entry:
+
+        gate[i, j] = (c_i . b_j) * exp(cum_i - cum_j) * dt_j   (j <= i, else 0;
+                     the mask is applied before the exp, which would overflow)
+        y_i = exp(cum_i) * (c_i . state) + sum_j gate[i, j] x_j + d_skip x_i
+        state <- exp(total) * state + sum_j b_j (x_j dt_j exp(total - cum_j))^T
+
+    With bf16 inputs, b and c and x enter the products as they are (exact
+    in bf16), and each float32 operand (the state, the gate, the scaled
+    x_j) as the ``bf16_pair`` the kernel makes of it; products accumulate
+    in float32. With float32 inputs nothing is rounded. Same arguments and
+    result as ``ssd_chunked_ref``."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    op = bf16_pair if x.dtype == torch.bfloat16 else (lambda t: t)
+    cum_type = torch.float32 if x.dtype == torch.bfloat16 else torch.float64
+    pad = -s % SSD_CHUNK
+    x32 = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dt32 = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    b32, c32 = (torch.nn.functional.pad(t.to(x.dtype).float(), (0, 0, 0, pad))
+                for t in (b, c))
+    a = -torch.exp(a_log.float())
+    rows = torch.arange(SSD_CHUNK, device=x.device)
+    causal = (rows[None, :] <= rows[:, None])[None, :, :, None]  # (1, i, j, 1)
+    y = torch.empty_like(x32)
+    state_out = torch.empty((bsz, h, p, n), dtype=torch.float32,
+                            device=x.device)
+    for p0 in range(0, p, SSD_P_TILE):
+        cols = slice(p0, min(p, p0 + SSD_P_TILE))
+        state = torch.zeros((bsz, h, n, cols.stop - p0), dtype=torch.float32,
+                            device=x.device)
+        for c0 in range(0, s + pad, SSD_CHUNK):
+            at = slice(c0, c0 + SSD_CHUNK)
+            xc, dtc, bc, cc = x32[:, at, :, cols], dt32[:, at], b32[:, at], c32[:, at]
+            cum = torch.cumsum((a * dtc).to(cum_type), dim=1)      # (B, L, H)
+            total = cum[:, -1]                                      # (B, H)
+            li = (cum[:, :, None, :] - cum[:, None, :, :]).float()  # (B, i, j, H)
+            decay = torch.where(causal, torch.exp(torch.where(causal, li, 0.0)),
+                                0.0)
+            gate = (torch.einsum("bin,bjn->bij", cc, bc)[..., None] * decay
+                    * dtc[:, None, :, :])
+            yc = (torch.einsum("bin,bhnp->bihp", cc, op(state))
+                  * torch.exp(cum.float())[..., None]
+                  + torch.einsum("bijh,bjhp->bihp", op(gate), xc)
+                  + xc * d_skip.float()[None, None, :, None])
+            y[:, at, :, cols] = yc
+            rem = torch.exp((total[:, None] - cum).float())         # (B, L, H)
+            scaled_x = xc * (dtc * rem)[..., None]
+            state = (state * torch.exp(total.float())[..., None, None]
+                     + torch.einsum("bjn,bjhp->bhnp", bc, op(scaled_x)))
+        state_out[..., cols, :] = state.transpose(-1, -2)
+    return y[:, :s].to(x.dtype), state_out
+
+
 def ssd_decode_ref(state, xt, dtt, a_log, bt, ct, d_skip):
     """One recurrent SSD step. state: (B, H, P, N) float32; xt: (B, H, P);
     dtt: (B, H); bt, ct: (B, N). Returns (y (B, H, P), new state)."""

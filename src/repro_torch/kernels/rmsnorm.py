@@ -1,13 +1,17 @@
 """Row RMSNorm: the CUDA kernel's wrapper.
 
 The kernel (``csrc/rmsnorm.cu``) replaces the JAX package's Pallas TPU
-kernel ``repro/kernels/rmsnorm.py``: one warp per row computes
+kernel ``repro/kernels/rmsnorm.py``: it computes
 ``x * rsqrt(mean(x**2) + eps) * scale`` in float32 and writes the input's
-type. Its plain version is ``ref.rmsnorm_ref``.
+type, reading each row once by 16-byte loads into registers. Its plain
+version is ``ref.rmsnorm_ref``.
 
 This wrapper takes CUDA tensors only (``ops.rmsnorm`` sends CPU tensors
-to the plain version), checks them, allocates the output and launches on
-PyTorch's current stream. ``rmsnorm.launches`` counts launches.
+to the plain version), checks them, allocates the output, picks how many
+warps share a row (``warps_per_row``) and launches on PyTorch's current
+stream: one launch per call, scale read in its own type (float32 or
+bf16; any other type is converted first). ``rmsnorm.launches`` counts
+launches.
 """
 from __future__ import annotations
 
@@ -19,16 +23,54 @@ import torch
 from repro_torch.kernels import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
+_MAX_VECTORS = 16    # 16-byte vectors a lane holds (csrc/rmsnorm.cu)
+_MAX_WARPS = 8       # warps that share a row
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load("rmsnorm")
-    p = ctypes.c_void_p
-    lib.rmsnorm_launch.argtypes = [ctypes.c_int, p, p, p, ctypes.c_longlong,
-                                   ctypes.c_int, ctypes.c_float, p]
-    lib.rmsnorm_launch.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rmsnorm_launch.argtypes = [i, i, p, p, p, ctypes.c_longlong, i,
+                                   ctypes.c_float, i, p]
+    lib.rmsnorm_launch.restype = i
     return lib
+
+
+def warps_per_row(rows: int, d: int, element_size: int) -> int:
+    """Warps that share a row of ``d`` elements, by rule (the card's
+    numbers for it: chip_smoke.py's rmsnorm layout phase, PERF.md):
+    - one while a lane holds at most 4 of the row's 16-byte vectors (bf16
+      d <= 1024), else two: at bf16 d 2560 and 3072 two warps a row beat
+      both one and four;
+    - doubled while a lane would hold more than ``_MAX_VECTORS`` (its
+      registers);
+    - doubled while the rows are too few to give the card 128 warps and
+      the row has vectors for more lanes (a decode step's 4 rows: one
+      vector or two a lane instead of ten)."""
+    vectors = -(-d * element_size // 16)
+    w = 1 if vectors <= 32 * 4 else 2
+    while -(-vectors // (32 * w)) > _MAX_VECTORS:
+        w *= 2
+    while rows * w < 128 and 32 * w < vectors and w < _MAX_WARPS:
+        w *= 2
+    if w > _MAX_WARPS:
+        raise ValueError(f"rmsnorm: a row of {d} elements is beyond the "
+                         f"kernel ({_MAX_WARPS} warps x 32 lanes x "
+                         f"{_MAX_VECTORS} vectors of 16 bytes)")
+    return w
+
+
+def launch(x, scale, out, eps: float, w: int) -> None:
+    """The C entry on checked tensors (x and out contiguous, of one shape
+    and type; scale (d,) contiguous, float32 or bf16), ``w`` warps a row."""
+    d = x.shape[-1]
+    with torch.cuda.device(x.device):
+        rc = _library().rmsnorm_launch(
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], x.data_ptr(),
+            scale.data_ptr(), out.data_ptr(), x.numel() // d, d, eps, w,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check_launch("rmsnorm", rc)
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):
@@ -46,17 +88,14 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
         raise ValueError(f"rmsnorm: scale of shape {tuple(scale.shape)}, "
                          f"expected ({d},)")
     x = x.contiguous()
-    scale = scale.to(torch.float32).contiguous()
+    if scale.dtype not in _DTYPE_CODES:
+        scale = scale.to(torch.float32)
+    scale = scale.contiguous()
     out = torch.empty_like(x)
-    rows = x.numel() // d if d else 0
-    if rows == 0:
+    if x.numel() == 0:
         return out
-    with torch.cuda.device(dev):
-        rc = _library().rmsnorm_launch(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), rows, d, eps,
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check_launch("rmsnorm", rc)
+    launch(x, scale, out, eps,
+           warps_per_row(x.numel() // d, d, x.element_size()))
     rmsnorm.launches += 1
     return out
 

@@ -1,17 +1,21 @@
 """Mamba2 SSD scan (forward): the CUDA kernel's wrapper.
 
 The kernel (``csrc/ssd_scan.cu``) replaces the JAX package's Pallas TPU
-kernel ``repro/kernels/ssd_scan.py``: one block per (head, batch) carries
-the (P, N) float32 state in registers through the sequence, with b and c
-read per (batch, position), shared by the heads. It computes the function
-of ``ref.ssd_chunked_ref`` (and of the recurrence ``ref.ssd_naive_ref``)
-in its recurrent form, so the chunk length does not enter it. Forward
-only: the backward comes with LM training.
+kernel ``repro/kernels/ssd_scan.py``: the chunked form, one block per
+(tile of P, head, batch) walking the sequence in chunks of 64 positions
+with its slice of the float32 state carried across chunks; in bf16 the
+products run on the tensor cores (``wgmma``, 64-column tiles), in float32
+on CUDA cores (32-column tiles). Its plain version in the same order is
+``ref.ssd_tiled_ref``; it computes the function of
+``ref.ssd_chunked_ref`` and of the recurrence ``ref.ssd_naive_ref``, and
+the config's chunk length does not enter it. Forward only: the backward
+comes with LM training.
 
 This wrapper takes CUDA tensors only (``ops.ssd`` sends CPU tensors to
 the plain version), checks them, brings b and c to x's type and dt,
-a_log, d_skip to float32, allocates y and the final state and launches on
-PyTorch's current stream. ``ssd.launches`` counts launches.
+a_log, d_skip to float32 (contiguous, on 16-byte boundaries), allocates y
+and the final state and launches on PyTorch's current stream.
+``ssd.launches`` counts launches.
 """
 from __future__ import annotations
 
@@ -23,8 +27,15 @@ import torch
 from repro_torch.kernels import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
-_MAX_STATE = 512   # N: 32 threads of 16 columns share a row
-_MAX_GRID_Y = 65535
+_MAX_STATE = 128   # N: b and c tiles of a chunk in shared memory
+_MAX_GRID_YZ = 65535  # heads and batch are the grid's y and z
+
+
+def _dense16(t):
+    """``t`` contiguous with its base on a 16-byte boundary (the kernel's
+    16-byte copies need it); a copy only when it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,12 +74,15 @@ def ssd(x, dt, a_log, b, c, d_skip):
             f"ssd: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, b "
             f"{tuple(b.shape)}, c {tuple(c.shape)}, a_log "
             f"{tuple(a_log.shape)}, d_skip {tuple(d_skip.shape)} do not fit")
-    if n > _MAX_STATE or bsz > _MAX_GRID_Y:  # the C entry refuses the rest
-        raise ValueError(f"ssd: (B, N) = ({bsz}, {n}) is beyond the kernel's "
-                         f"grid or block (B <= {_MAX_GRID_Y}, N <= {_MAX_STATE})")
-    x = x.contiguous()
-    b, c = (t.to(x.dtype).contiguous() for t in (b, c))
-    dt, a_log, d_skip = (t.to(torch.float32).contiguous()
+    if (n > _MAX_STATE or n % 8 or p % 8 or bsz > _MAX_GRID_YZ
+            or h > _MAX_GRID_YZ):  # the C entry refuses the same
+        raise ValueError(
+            f"ssd: (B, H, P, N) = ({bsz}, {h}, {p}, {n}) is beyond the "
+            f"kernel's grid or tiles (B, H <= {_MAX_GRID_YZ}; P and N "
+            f"multiples of 8, N <= {_MAX_STATE})")
+    x = _dense16(x)
+    b, c = (_dense16(t.to(x.dtype)) for t in (b, c))
+    dt, a_log, d_skip = (_dense16(t.to(torch.float32))
                          for t in (dt, a_log, d_skip))
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)

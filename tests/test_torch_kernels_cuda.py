@@ -112,12 +112,72 @@ def _check(got, expect, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(1, 8, 256), (3, 5, 7, 64), (2048, 576),
-                                   (4, 100), (1, 3072)])
+                                   (4, 100), (1, 3072),
+                                   (2048, 2560), (2048, 3072)])
 def test_rmsnorm_kernel_matches_plain_version(shape, dtype):
     _needs_card()
     rng = np.random.default_rng(sum(shape))
     x = _randn(rng, shape, dtype)
     scale = _randn(rng, shape[-1:], dtype)
+    before = rmsnorm_kernel.rmsnorm.launches
+    got = rmsnorm_kernel.rmsnorm(x, scale)
+    assert rmsnorm_kernel.rmsnorm.launches == before + 1
+    _check(got, ref.rmsnorm_ref(x, scale), TOL[dtype])
+
+
+def _cuda_kernels(fn, calls):
+    """{kernel name: launches} the card ran for ``calls`` calls of ``fn``,
+    after one call outside the window: torch.profiler's averages by name
+    that took device time (the runtime calls on the host, also listed,
+    take none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if getattr(ev, "device_time_total", 0) > 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,scale_dtype", [("bfloat16", "float32"),
+                                               ("float32", "bfloat16"),
+                                               ("bfloat16", "bfloat16")])
+def test_rmsnorm_kernel_reads_scale_in_its_own_type(dtype, scale_dtype):
+    """One launch a call and no cast kernel: the kernel reads scale in its
+    type, and scale is left as it was."""
+    _needs_card()
+    rng = np.random.default_rng(7)
+    x = _randn(rng, (64, 2560), dtype)
+    scale = _randn(rng, (2560,), scale_dtype)
+    kept = scale.clone()
+    rmsnorm_kernel.rmsnorm(x, scale)        # first use: build and load
+    before = rmsnorm_kernel.rmsnorm.launches
+    out = []
+    kernels = _cuda_kernels(lambda: out.append(rmsnorm_kernel.rmsnorm(x, scale)),
+                            calls=5)
+    assert rmsnorm_kernel.rmsnorm.launches == before + 6
+    assert len(kernels) == 1, kernels       # no cast kernel beside it
+    (name, count), = kernels.items()
+    assert "rmsnorm_kernel" in name and count == 5, kernels
+    assert scale.dtype == getattr(torch, scale_dtype) and torch.equal(scale, kept)
+    _check(out[-1], ref.rmsnorm_ref(x, scale), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_edge_path_on_a_misaligned_base(dtype):
+    """x contiguous but 2 or 4 bytes off a 16-byte boundary: the kernel's
+    scalar path, in the same launch."""
+    _needs_card()
+    rng = np.random.default_rng(11)
+    buf = _randn(rng, (33 * 576 + 1,), dtype)
+    x = buf[1:].view(33, 576)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    scale = _randn(rng, (576,), dtype)
     before = rmsnorm_kernel.rmsnorm.launches
     got = rmsnorm_kernel.rmsnorm(x, scale)
     assert rmsnorm_kernel.rmsnorm.launches == before + 1
@@ -169,6 +229,7 @@ DECODE_CASES = [  # B, S, H, KV, D, pos, window, cache layout
     (1, 700, 8, 2, 64, 650, 100, "dense"),      # window starts inside a split
     (1, 544, 9, 3, 64, 0, 0, "dense"),          # pos 0 at batch 1
     (2, 544, 6, 2, 64, 400, 0, "slice"),        # the cache a strided slice
+    (1, 544, 9, 3, 64, 543, 0, "offset"),       # contiguous, base off 16 bytes
 ]
 
 
@@ -176,7 +237,7 @@ DECODE_CASES = [  # B, S, H, KV, D, pos, window, cache layout
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "b,s,h,kv,d,pos,window,layout", DECODE_CASES,
-    ids=["-".join(map(str, c[:7])) + ("-slice" if c[7] == "slice" else "")
+    ids=["-".join(map(str, c[:7])) + ("" if c[7] == "dense" else "-" + c[7])
          for c in DECODE_CASES])
 def test_flash_decode_kernel_matches_plain_version(b, s, h, kv, d, pos,
                                                    window, layout, dtype):
@@ -186,6 +247,11 @@ def test_flash_decode_kernel_matches_plain_version(b, s, h, kv, d, pos,
     if layout == "slice":  # k, v: seq and head slices of one wider buffer
         buf = _randn(rng, (b, s + 56, 2 * kv, d), dtype)
         k, v = buf[:, :s, :kv], buf[:, :s, kv:]
+    elif layout == "offset":  # contiguous views one element past a boundary
+        n = b * s * kv * d
+        buf = _randn(rng, (2 * n + 2,), dtype)
+        k, v = buf[1:n + 1].view(b, s, kv, d), buf[n + 2:].view(b, s, kv, d)
+        assert k.is_contiguous() and k.data_ptr() % 16 != 0
     else:
         k = _randn(rng, (b, s, kv, d), dtype)
         v = _randn(rng, (b, s, kv, d), dtype)
@@ -196,28 +262,52 @@ def test_flash_decode_kernel_matches_plain_version(b, s, h, kv, d, pos,
            TOL[dtype])
 
 
+SSD_CASES = [  # B, S, H, P, N, chunk (of the plain version), a_log draw
+    (1, 8, 16, 32, 32, 16, "normal"),       # a serve prompt at reduced()
+    (2, 128, 4, 32, 16, 32, "normal"),
+    (2, 96, 4, 32, 16, 32, "normal"),       # ragged S
+    (1, 128, 8, 16, 8, 16, "normal"),       # N below one mma k-step
+    (1, 512, 80, 64, 128, 256, "normal"),   # mamba2-2.7b full width
+    # chunk 64 from here on, the kernel's: in float32 at these widths the
+    # chunk-256 form is itself about the tolerance off the recurrence
+    (1, 1, 80, 64, 128, 64, "normal"),      # one position
+    (1, 64, 80, 64, 128, 64, "normal"),     # one whole chunk of the kernel
+    (1, 65, 80, 64, 128, 64, "normal"),     # ... and one row of the next
+    (1, 2048, 80, 64, 128, 64, "normal"),   # 32 chunks
+    (4, 512, 80, 64, 128, 64, "normal"),    # the full-width prefill's batch
+    (2, 300, 8, 64, 128, 64, "strong"),     # the model's a_log = log U(1, 16)
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,s,h,p,n,chunk", [
-    (1, 8, 16, 32, 32, 16),             # a serve prompt at reduced()
-    (2, 128, 4, 32, 16, 32),
-    (2, 96, 4, 32, 16, 32),             # ragged S
-    (1, 128, 8, 16, 8, 16),             # N below one thread's columns
-    (1, 512, 80, 64, 128, 256),         # mamba2-2.7b full width
-])
-def test_ssd_kernel_matches_plain_version(b, s, h, p, n, chunk, dtype):
+@pytest.mark.parametrize(
+    "b,s,h,p,n,chunk,decay", SSD_CASES,
+    ids=["-".join(map(str, c[:6])) + ("-strong" if c[6] == "strong" else "")
+         for c in SSD_CASES])
+def test_ssd_kernel_matches_plain_version(b, s, h, p, n, chunk, decay, dtype):
+    """Held against the TPU kernel's chunked form and against the plain
+    version in the kernel's own order (chunks of 64, bf16 operand pairs).
+    The strong case draws the model's decay rates with large steps (a*dt
+    down to ~-70), where exp(cum_i - cum_j) for j > i would overflow."""
     _needs_card()
     rng = np.random.default_rng(s + h)
     x = _randn(rng, (b, s, h, p), dtype)
-    dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), "float32"))
-    a_log = _randn(rng, (h,), "float32") * 0.5
+    if decay == "strong":
+        dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), "float32") + 1)
+        a_log = torch.log(torch.as_tensor(rng.uniform(1.0, 16.0, h),
+                                          dtype=torch.float32, device="cuda"))
+    else:
+        dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), "float32"))
+        a_log = _randn(rng, (h,), "float32") * 0.5
     bb = _randn(rng, (b, s, n), dtype)
     cc = _randn(rng, (b, s, n), dtype)
     d_skip = torch.ones(h, device="cuda")
     before = ssd_scan.ssd.launches
     y, state = ssd_scan.ssd(x, dt, a_log, bb, cc, d_skip)
     assert ssd_scan.ssd.launches == before + 1
-    y_ref, state_ref = ref.ssd_chunked_ref(x, dt, a_log, bb, cc, d_skip,
-                                           chunk=chunk)
-    _check(y, y_ref, SSD_TOL[dtype])
-    _check(state, state_ref, SSD_TOL[dtype])
+    for y_ref, state_ref in (
+            ref.ssd_chunked_ref(x, dt, a_log, bb, cc, d_skip, chunk=chunk),
+            ref.ssd_tiled_ref(x, dt, a_log, bb, cc, d_skip)):
+        _check(y, y_ref, SSD_TOL[dtype])
+        _check(state, state_ref, SSD_TOL[dtype])

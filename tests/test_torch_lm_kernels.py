@@ -63,6 +63,25 @@ def test_rmsnorm_ref_matches_jax(shape, dtype):
            TOL[dtype])
 
 
+@pytest.mark.parametrize("rows,d,size,w", [
+    (2048, 576, 2, 1),      # bf16 prefill rows: one warp a row up to d 1024,
+    (2048, 1536, 2, 2),     # two from 1536 on
+    (2048, 3072, 2, 2),
+    (2048, 3072, 4, 2),     # float32: 12 vectors a lane
+    (8, 256, 4, 2),         # execute-serving's (1, 8, 256): few rows
+    (4, 576, 2, 4),         # a decode step's 4 rows
+    (4, 2560, 2, 8),
+    (2048, 16384, 4, 8),    # registers: at most 16 vectors a lane
+])
+def test_rmsnorm_warps_per_row(rows, d, size, w):
+    assert t_rmsnorm.warps_per_row(rows, d, size) == w
+
+
+def test_rmsnorm_refuses_rows_beyond_the_kernel():
+    with pytest.raises(ValueError, match="beyond the kernel"):
+        t_rmsnorm.warps_per_row(2048, 65536, 4)
+
+
 # =============================== Attention ====================================
 FLASH_CASES = [  # B, S, H, KV, D, window, dtype (the JAX flash tests')
     (2, 256, 4, 2, 64, 0, "float32"),
@@ -235,6 +254,19 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
         assert torch.equal(got, expect)
     with pytest.raises(ValueError, match="no kernel for device 'meta'"):
         ops.rmsnorm(x.to("meta"), scale.to("meta"))
+
+
+def test_aligned16_moves_a_contiguous_tensor_off_the_boundary():
+    """A contiguous view whose base is off a 16-byte boundary gets a fresh
+    copy (``contiguous()`` alone would return it as it is); an aligned
+    tensor is passed through untouched."""
+    buf = torch.arange(2 * 8 * 4 * 64 + 1, dtype=torch.float32)
+    t = buf[1:].view(2, 8, 4, 64)
+    assert t.is_contiguous() and t.data_ptr() % 16 != 0
+    got = flash_attention.aligned16(t)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, t)
+    aligned = buf[:-1].view(2, 8, 4, 64)
+    assert flash_attention.aligned16(aligned) is aligned
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
