@@ -11,9 +11,16 @@ Phases, one JSON line each (after the card's name and power limit):
    csrc``, one ``nvcc`` per source, all started together, and print each
    compiled kernel function's registers and spills (``-Xptxas -v``);
 2. hold ``route_score`` against its plain PyTorch version on the card, at
-   the shapes route-only serving gives it and on one large panel: bitwise
-   in float32 and float64, the same ``+inf`` set, bf16 within one bf16 ulp
-   (rtol 2**-7); time both with CUDA events;
+   the shapes route-only serving gives it, with the eq. 16 knobs in the
+   columns' type (the trained actor's call), and on two large panels (the
+   full form and the main path's switch-free form): bitwise in float32 and
+   float64, the same ``+inf`` set, bf16 within one bf16 ulp (rtol 2**-7);
+   time both with CUDA events (a call: the median of five runs) and the
+   kernel under the profiler (device); time the library's empty kernel on
+   the main path's grid the same two ways (the launch floor), its call
+   paired run by run with the main path's; and time the full panel with
+   the kernel's path forced to one score a thread, and the main path's
+   chunk forced through the staged path;
 3. route-only serving through ``repro_torch.launch.serve.serve`` on the
    card, 4096 requests in two configurations (64 servers; 4 cells x 16
    servers + cloud under ``slo-mix`` with a 20000 tok/s drain), each on
@@ -58,10 +65,12 @@ checkout, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -162,7 +171,7 @@ def ptxas_usage(log_path):
 
 # --------------------------------------------------------------------------
 def score_inputs(np, torch, b, n, k, dtype, *, cells=0, spill=False,
-                 base=False, seed=0, dev="cuda"):
+                 base=False, knobs=False, seed=0, dev="cuda"):
     """Route-score columns at a main-path shape, made from a seed."""
     rng = np.random.default_rng(seed)
 
@@ -193,6 +202,9 @@ def score_inputs(np, torch, b, n, k, dtype, *, cells=0, spill=False,
             adj = rng.random((cells, cells)) < 0.5
             np.fill_diagonal(adj, False)
             args["spill"] = torch.as_tensor(adj, device=dev)
+    if knobs:  # drawn after the rest: the other cases keep their inputs
+        args["eta"] = f(rng.choice([0.0, 0.25, 0.5, 1.0, 0.3], size=b))
+        args["beta"] = torch.as_tensor(rng.random(b) < 0.5, device=dev)
     return args
 
 
@@ -234,6 +246,11 @@ def score_bound(args, out, dtype_name):
         per_elem += b * n + spilled            # surcharge add + divides
     if args["size_bits"] is not None or spilled:
         cols += ["backhaul_bps"]
+    if args.get("eta") is not None:
+        cols += ["eta"]
+        per_elem += 2 * b                      # prompt*eta, work*eta
+    if args.get("beta") is not None:
+        cols += ["beta"]
     nbytes += sum(args[c].numel() * args[c].element_size() for c in cols)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = per_elem / PEAK_OPS[dtype_name]
@@ -253,6 +270,28 @@ def time_ms(torch, fn, iters):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def call_ms(torch, fn, iters, reps=5):
+    """Host + launch time of one call: the median over ``reps`` runs of
+    ``time_ms`` (the host's load moves a call's time more than the
+    device's)."""
+    return statistics.median(time_ms(torch, fn, iters) for _ in range(reps))
+
+
+@contextlib.contextmanager
+def plan_forced(kernel, path):
+    """route_score's wrapper with its plan forced to one of the kernel's
+    paths, ``direct`` or ``staged`` (None: as ``plan`` picks)."""
+    planned = kernel.plan
+    if path == "direct":
+        kernel.plan = lambda b, n, *_: kernel.direct_plan(b, n)
+    elif path == "staged":
+        kernel.plan = kernel.staged_plan
+    try:
+        yield
+    finally:
+        kernel.plan = planned
 
 
 def device_ms(torch, fn, name, iters=20):
@@ -283,46 +322,92 @@ def phase_route_score(np, torch, kernel, ref, dev="cuda"):
                                                 spill=True)),
         "full-queue": (CHUNK, 64, 4, dict()),
         "panel": (65536, 64, 4, dict()),
+        "eta-beta": (CHUNK, 64, 4, dict(knobs=True)),
+        "panel-base": (65536, 64, 4, dict(base=True)),
+        # each of the kernel's paths forced on the other's ground: what
+        # the plan's choice gains on each side of it
+        "panel-direct": (65536, 64, 4, dict(path="direct")),
+        "main-path-staged": (CHUNK, 64, 4, dict(base=True, path="staged")),
     }
-    results = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results, inputs = {}, {}
     for name, (b, n, k, opts) in cases.items():
+        opts = dict(opts)
+        path = opts.pop("path", None)
         for dtype_name in ("float32", "float64", "bfloat16"):
             dtype = getattr(torch, dtype_name)
             args = score_inputs(np, torch, b, n, k, dtype, seed=b + n,
                                 dev=dev, **opts)
-            got = kernel.route_score(**args)
-            expect = ref.route_score_ref(**args)
-            torch.cuda.synchronize()
-            check(got.shape == (b, n) and got.dtype == dtype,
-                  f"route_score {name}/{dtype_name}: shape/type")
-            check(torch.equal(torch.isinf(got), torch.isinf(expect)),
-                  f"route_score {name}/{dtype_name}: +inf sets differ")
-            fin = torch.isfinite(expect)
-            diff = (got.double() - expect.double()).abs()[fin]
-            max_abs = float(diff.max()) if diff.numel() else 0.0
-            if dtype_name == "bfloat16":   # one bf16 rounding on each side
-                rel = diff / expect.double().abs()[fin].clamp_min(1e-300)
-                check(float(rel.max()) <= 2.0**-7,
-                      f"route_score {name}/bf16: rel err {float(rel.max())}")
-            else:
-                check(torch.equal(got, expect),
-                      f"route_score {name}/{dtype_name}: not bitwise "
-                      f"(max abs err {max_abs})")
-            iters = 20 if b > 4096 else 200
-            ms = time_ms(torch, lambda: kernel.route_score(**args), iters)
-            plain_ms = time_ms(torch, lambda: ref.route_score_ref(**args),
-                               iters)
-            dev_ms = device_ms(torch, lambda: kernel.route_score(**args),
-                               "route_score_kernel")
-            bound_ms, bound_by = score_bound(args, got, dtype_name)
-            res = {"phase": "route_score", "case": name, "dtype": dtype_name,
-                   "shape": [b, n], "bitwise": bool(torch.equal(got, expect)),
-                   "max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by}
+            inputs[(name, dtype_name)] = args
+            with plan_forced(kernel, path):
+                res = score_case(torch, kernel, ref, name, dtype_name, args,
+                                 "direct" if kernel.plan(b, n, dtype, sms)
+                                 .direct else "staged")
             emit(res)
             results[(name, dtype_name)] = res
+    for dtype_name in ("float32", "float64", "bfloat16"):
+        # the launch floor: an empty kernel on the main path's grid,
+        # launched through the same wrapper code; its call time is paired
+        # run by run with the main path's, which gives the time a call
+        # spends above the floor on one host load
+        b, n = cases["main-path-base"][:2]
+        dtype = getattr(torch, dtype_name)
+        args = inputs[("main-path-base", dtype_name)]
+
+        def floor():
+            kernel.launch_floor(b, n, dtype, dev)
+
+        def main_path():
+            kernel.route_score(**args)
+
+        pairs = [(time_ms(torch, main_path, 200), time_ms(torch, floor, 200))
+                 for _ in range(7)]
+        p = kernel.plan(b, n, dtype, sms)
+        res = {"phase": "route_score_floor", "shape": [b, n],
+               "dtype": dtype_name, "blocks": p.blocks, "threads": p.threads,
+               "ms": statistics.median(f for _, f in pairs),
+               "device_ms": device_ms(torch, floor, "route_score_empty_kernel"),
+               "main_path_ms": statistics.median(m for m, _ in pairs),
+               "main_path_above_floor_ms": statistics.median(
+                   m - f for m, f in pairs)}
+        emit(res)
+        results[("launch-floor", dtype_name)] = res
     return results
+
+
+def score_case(torch, kernel, ref, name, dtype_name, args, path):
+    """One route_score case against its plain version, timed; ``path`` is
+    the kernel path the call takes."""
+    b, n = args["prompt_bits"].shape[0], args["uplink_bps"].shape[0]
+    got = kernel.route_score(**args)
+    expect = ref.route_score_ref(**args)
+    torch.cuda.synchronize()
+    check(got.shape == (b, n) and got.dtype == getattr(torch, dtype_name),
+          f"route_score {name}/{dtype_name}: shape/type")
+    check(torch.equal(torch.isinf(got), torch.isinf(expect)),
+          f"route_score {name}/{dtype_name}: +inf sets differ")
+    fin = torch.isfinite(expect)
+    diff = (got.double() - expect.double()).abs()[fin]
+    max_abs = float(diff.max()) if diff.numel() else 0.0
+    if dtype_name == "bfloat16":   # one bf16 rounding on each side
+        rel = diff / expect.double().abs()[fin].clamp_min(1e-300)
+        check(float(rel.max()) <= 2.0**-7,
+              f"route_score {name}/bf16: rel err {float(rel.max())}")
+    else:
+        check(torch.equal(got, expect),
+              f"route_score {name}/{dtype_name}: not bitwise "
+              f"(max abs err {max_abs})")
+    iters = 20 if b > 4096 else 200
+    ms = call_ms(torch, lambda: kernel.route_score(**args), iters)
+    plain_ms = call_ms(torch, lambda: ref.route_score_ref(**args), iters)
+    dev_ms = device_ms(torch, lambda: kernel.route_score(**args),
+                       "route_score_kernel")
+    bound_ms, bound_by = score_bound(args, got, dtype_name)
+    return {"phase": "route_score", "case": name, "dtype": dtype_name,
+            "shape": [b, n], "path": path,
+            "bitwise": bool(torch.equal(got, expect)),
+            "max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 # --------------------------------------------------------------------------
@@ -835,8 +920,9 @@ def main():
     emit({"phase": "timing", "total_s": t_end - t_start,
           "lm_phases_s": t_end - t_lm})
     main = scores[("main-path-base", "float32")]
+    floor = scores[("launch-floor", "float32")]
     err = max(r["max_abs_err"] for (case, dt), r in scores.items()
-              if dt != "bfloat16")
+              if dt != "bfloat16" and case != "launch-floor")
     csrc, pallas = "src/repro_torch/kernels/csrc", "src/repro/kernels"
     emit({"kernels": [{
         "name": "route_score", "route": "cuda",
@@ -850,6 +936,9 @@ def main():
         "max_abs_diff": err, "kernel_ms": main["ms"],
         "device_ms": main["device_ms"], "shape": main["shape"],
         "dtype": "float32",
+        "launch_floor_device_ms": floor["device_ms"],
+        "launch_floor_ms": floor["ms"],
+        "above_floor_ms": floor["main_path_above_floor_ms"],
     }] + [
         kernel_entry(name, f"{csrc}/{src}.cu", f"{pallas}/{src}.py:{line}",
                      exec_launches[name], lm_results)

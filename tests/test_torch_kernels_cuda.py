@@ -15,20 +15,110 @@ from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels import route_score as kernel
 from repro_torch.kernels import ssd_scan
 
-CASES = {  # name -> (B, N, K, cells, spill, base, eta/beta)
-    "below-block": (5, 3, 4, 0, False, False, False),
-    "ragged": (257, 17, 9, 0, False, False, False),
-    "cells-cloud": (130, 65, 5, 3, False, False, False),
-    "spill": (130, 33, 6, 5, True, False, False),
-    "base-cells-spill": (256, 65, 4, 4, True, True, False),
-    "eta-beta": (129, 31, 5, 3, True, False, True),
-    "panel": (65536, 64, 4, 0, False, False, False),
+CASES = {  # name -> (B, N, K, cells, spill, base, eta/beta types)
+    "below-block": (5, 3, 4, 0, False, False, None),
+    "ragged": (257, 17, 9, 0, False, False, None),
+    "cells-cloud": (130, 65, 5, 3, False, False, None),
+    "spill": (130, 33, 6, 5, True, False, None),
+    "base-cells-spill": (256, 65, 4, 4, True, True, None),
+    "eta-beta": (129, 31, 5, 3, True, False, "same"),
+    "panel": (65536, 64, 4, 0, False, False, None),
+    # widths that are no multiple of V (4 float32, 2 float64, 8 bf16)
+    "n1": (300, 1, 4, 0, False, False, None),
+    "n257": (70, 257, 6, 2, True, False, None),
+    # K above 32: residency read as bytes, not as a bit mask
+    "k40": (130, 33, 40, 3, True, False, None),
+    # eta in another type than the columns, beta not bool: folded on the host
+    "eta-beta-mixed": (129, 31, 5, 3, True, False, "mixed"),
+    # every column one element off a 16-byte boundary
+    "offset": (257, 17, 9, 3, True, False, "same"),
+    # the divides over the whole exponent range (_stress_args); at the
+    # panel's size the staged path gives each block a strip of many rows
+    "divide-stress": (1024, 64, 4, 3, True, False, None),
+    "divide-stress-panel": (65536, 64, 4, 3, True, False, None),
 }
+PANELS = ("panel", "divide-stress-panel")  # staged when planned
+
+
+def _wild(rng, size, ft):
+    """Positive bit patterns over the whole exponent range, a quarter of
+    them zeros of both signs, infinities, subnormals and the extremes."""
+    fi = np.finfo(ft)
+    it = np.uint32 if ft == np.float32 else np.uint64
+    e = rng.integers(0, 2 ** (fi.bits - 1 - fi.nmant) - 1, size)
+    m = rng.integers(0, 2 ** fi.nmant, size, dtype=np.uint64)
+    x = ((e.astype(it) << it(fi.nmant)) | m.astype(it)).view(ft)
+    specials = np.array([0.0, -0.0, np.inf, fi.max, fi.tiny,
+                         fi.smallest_subnormal, fi.tiny / 8, fi.max / 2], ft)
+    pick = rng.random(size) < 0.25
+    x[pick] = rng.choice(specials, int(pick.sum()))
+    return x
+
+
+def _stress_args(b, n, k, cells, dtype, rng):
+    """The divide-stress case: the servers from n // 2 on and a third of
+    the requests hold _wild values (quotients that overflow, underflow to
+    subnormals or zero, inf/inf, 0/0); of the other requests, half have a
+    prompt whose quotient by one in-range uplink lies within an ulp of a
+    rounding midpoint (the cases a wrong reciprocal divide gets wrong).
+    Drawn in float32 for bf16."""
+    ft = np.float64 if dtype == torch.float64 else np.float32
+    wild_row = rng.random(b) < 1 / 3
+    wild_col = np.arange(n) >= n // 2
+
+    def col(size, lo, hi, wild):
+        x = rng.uniform(lo, hi, size).astype(ft)
+        x[wild] = _wild(rng, int(wild.sum()), ft)
+        return x
+
+    up = col(n, 5e7, 2e8, wild_col)
+    prompt = col(b, 1e5, 1e6, wild_row)
+    bits = np.finfo(ft).nmant + 1
+    for i in np.nonzero(~wild_row & (rng.random(b) < 0.5))[0]:
+        num, den = float(up[i % (n // 2)]).as_integer_ratio()
+        odd = int(rng.integers(2 ** (bits - 1), 2 ** bits)) * 2 + 1
+        # uplink * (a midpoint of two floats near 2**-4), rounded once
+        prompt[i] = ft((num * odd) / (den * 2 ** (bits + 4)))
+        if rng.random() < 0.5:
+            prompt[i] = np.nextafter(prompt[i], ft(np.inf if rng.random() < 0.5
+                                                   else 0))
+
+    def f(x):
+        return torch.as_tensor(x, device="cuda").to(dtype)
+
+    return dict(
+        prompt_bits=f(prompt), size_bits=f(col(b, 1e9, 1e10, wild_row)),
+        flops_tok=f(col(b, 1e9, 1e10, wild_row)),
+        work=f(col(b, 1e10, 1e12, wild_row)),
+        uplink_bps=f(up), backhaul_bps=f(col(n, 5e8, 2e9, wild_col)),
+        flops_per_s=f(col(n, 5e13, 2e14, wild_col)),
+        queue_tokens=f(col(n, 0, 500, wild_col)),
+        resident=torch.as_tensor(rng.random((n, k)) < 0.5, device="cuda"),
+        model=torch.as_tensor(rng.integers(0, k, b).astype(np.int32),
+                              device="cuda"),
+        req_cell=torch.as_tensor(rng.integers(0, cells, b).astype(np.int32),
+                                 device="cuda"),
+        srv_cell=torch.as_tensor(rng.integers(-1, cells, n).astype(np.int32),
+                                 device="cuda"),
+        spill=torch.as_tensor(rng.random((cells, cells)) < 0.5,
+                              device="cuda"),
+    )
+
+
+def _off16(x):
+    """x as a contiguous view one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
 
 
 def _args(case, dtype):
     b, n, k, cells, spill, base, knobs = CASES[case]
     rng = np.random.default_rng(b * 1000 + n)
+    if case.startswith("divide-stress"):
+        return _stress_args(b, n, k, cells, dtype, rng)
 
     def f(x):
         return torch.as_tensor(x, dtype=dtype, device="cuda")
@@ -58,31 +148,118 @@ def _args(case, dtype):
             np.fill_diagonal(adj, False)
             args["spill"] = dev(adj)
     if knobs:
-        args["eta"] = f(rng.choice([0.0, 0.25, 0.5, 1.0, 0.3], size=b))
-        args["beta"] = dev(rng.random(b) < 0.5)
+        eta = rng.choice([0.0, 0.25, 0.5, 1.0, 0.3], size=b)
+        beta = rng.random(b) < 0.5
+        if knobs == "same":
+            args["eta"], args["beta"] = f(eta), dev(beta)
+        else:
+            other = torch.float32 if dtype == torch.float64 else torch.float64
+            args["eta"] = torch.as_tensor(eta, dtype=other, device="cuda")
+            args["beta"] = torch.as_tensor(beta, dtype=torch.float32,
+                                           device="cuda")
+    if case == "offset":
+        args = {key: x if x is None or x.dim() != 1 else _off16(x)
+                for key, x in args.items()}
     return args
 
 
+def _bits(x):
+    return x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+
+
+def _check_scores(got, expect):
+    """Same type, shape, NaN and +inf sets; float32/float64 bit for bit
+    (every bit pattern, NaNs included), bf16 within one rounding."""
+    torch.cuda.synchronize()
+    assert got.dtype == expect.dtype and got.shape == expect.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(expect))
+    assert torch.equal(torch.isinf(got), torch.isinf(expect))
+    if got.dtype == torch.bfloat16:  # one rounding to bf16 on each side
+        torch.testing.assert_close(got.float(), expect.float(),
+                                   rtol=2**-7, atol=0, equal_nan=True)
+    else:  # no contraction, same grouping, correctly rounded divides
+        assert torch.equal(_bits(got), _bits(expect))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["planned", "direct", "staged"])
 @pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_route_score_kernel_matches_plain_version(case, dtype):
+def test_route_score_kernel_matches_plain_version(case, dtype, path,
+                                                  monkeypatch):
+    """Every case through the path ``plan`` picks and through each of the
+    kernel's two paths forced: one score a thread with IEEE divides, and
+    the staged one (servers and rows in shared memory, residency and spill
+    bit masks, reciprocal divides with their range checks and fallback)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dt = getattr(torch, dtype)
     args = _args(case, dt)
+    choose = {"planned": kernel.plan, "staged": kernel.staged_plan,
+              "direct": lambda b, n, *_: kernel.direct_plan(b, n)}[path]
+    used = []
+    monkeypatch.setattr(kernel, "plan",
+                        lambda *a: used.append(choose(*a)) or used[-1])
     before = kernel.route_score.launches
     got = kernel.route_score(**args)
     expect = ref.route_score_ref(**args)
-    torch.cuda.synchronize()
     assert kernel.route_score.launches == before + 1
-    assert got.dtype == expect.dtype and got.shape == expect.shape
-    assert torch.equal(torch.isinf(got), torch.isinf(expect))
-    if dt == torch.bfloat16:  # one rounding to bf16 on each side
-        torch.testing.assert_close(got.float(), expect.float(),
-                                   rtol=2**-7, atol=0)
-    else:  # no contraction, same grouping: bitwise
-        assert torch.equal(got, expect)
+    (p,) = used
+    assert p.direct == (path == "direct" or
+                        (path == "planned" and case not in PANELS)), p
+    if case in PANELS and path != "direct":  # strips of many rows
+        assert p.strip_rows > p.ty, p
+    _check_scores(got, expect)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", [True, False], ids=["base", "full"])
+def test_route_score_kernel_past_the_old_row_limit(base):
+    """600,000 rows: above the 65535 x 8 = 524,280 that the 2-D grid of
+    the first kernel could launch (it raised there); the plain version has
+    no limit, nor has the reference."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    b, n, k = 600_000, 64, 4
+    rng = np.random.default_rng(600)
+
+    def f(x):
+        return torch.as_tensor(x, dtype=torch.float32, device="cuda")
+
+    args = dict(
+        prompt_bits=f(rng.uniform(1e5, 1e6, b)),
+        size_bits=None if base else f(rng.uniform(1e9, 1e10, b)),
+        flops_tok=f(rng.uniform(1e9, 1e10, b)),
+        work=f(rng.uniform(1e10, 1e12, b)),
+        uplink_bps=f(rng.uniform(5e7, 2e8, n)),
+        backhaul_bps=f(rng.uniform(5e8, 2e9, n)),
+        flops_per_s=f(rng.uniform(5e13, 2e14, n)),
+        queue_tokens=None if base else f(rng.uniform(0, 500, n)),
+        resident=None if base else torch.as_tensor(
+            rng.random((n, k)) < 0.5, device="cuda"),
+        model=None if base else torch.as_tensor(
+            rng.integers(0, k, b).astype(np.int32), device="cuda"),
+    )
+    _check_scores(kernel.route_score(**args), ref.route_score_ref(**args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+def test_route_score_kernel_is_one_launch_with_knobs(dtype):
+    """eta and beta in the columns' type, bool resident and spill, int32
+    ids (what the router passes): one kernel a call and nothing else."""
+    _needs_card()
+    args = _args("eta-beta", getattr(torch, dtype))
+    kernel.route_score(**args)          # first use: build and load
+    before = kernel.route_score.launches
+    out = []
+    kernels = _cuda_kernels(lambda: out.append(kernel.route_score(**args)),
+                            calls=5)
+    assert kernel.route_score.launches == before + 6
+    assert len(kernels) == 1, kernels   # no cast or fold kernel beside it
+    (name, count), = kernels.items()
+    assert "route_score_kernel" in name and count == 5, kernels
+    _check_scores(out[-1], ref.route_score_ref(**args))
 
 
 # ========================= the LM-plane kernels ==============================
