@@ -52,12 +52,35 @@ Phases, one JSON line each (after the card's name and power limit):
 7. serving with execution: ``serve(execute=True)`` for 32 requests on 3
    servers, routing stats equal to the route-only run, every LM kernel
    launched;
-8. a ``kernels`` line with each kernel's launches on its main path (the
-   fleet-scale speculative serve for ``route_score``, execute-serving for
-   the others), its error against the plain version, its time, the plain
-   version's time, the library call's time and its bound, and beside them
-   the same numbers at one full-width bf16 case (``FULL_CASE``);
-9. the last line, ``{"ok": true, "device": {...}}``.
+8. ``maddpg_train``: the MADDPG-MATO trainer (``core.maddpg.train``) at
+   the paper's widths (the four edge archs' catalogue, K 4; 10 EDs, 3
+   ESs; ``AlgoConfig`` defaults) for ``TRAIN_STEPS`` steps, 3,000 of the
+   default 12,000 (the one cut): wall seconds, environment steps/s, one
+   update's time (CUDA events, median) beside the same update on the
+   CPU, the reward over the first and last 100 steps, all finite;
+9. ``actor_checkpoint``: the trained actor saved by the port's
+   checkpointer into a temporary directory and restored bit for bit;
+10. ``actor_serve``: 4096 ``hotspot-cell`` requests over 16 cells x 3
+    edge servers + the cloud column, drain 20000 tok/s, chunks of 256,
+    float32, through ``greedy`` (correction loop), the restored ``actor``
+    (the chunk hook) and ``actor_full`` (the actor's eta/beta columns
+    too): route time, ``route_score`` launches and each call's rows
+    (counts set to 0 just before each route and read just after), the
+    chunks replayed; choices, causes and hits equal to the same route on
+    the CPU, latencies within 1e-6 relative; and one
+    ``serve(policy="actor:<ckpt>")`` with the stats of the direct route;
+11. ``simulate``: the same stream in windows of 256 for greedy and the
+    actor; every per-window series equal to the CPU's, in those terms;
+12. ``evaluate``: ``evaluate_policy`` for the trained actor, random and
+    greedy over 32 episodes: latency, energy, completion and switch
+    latency, printed, not held;
+13. a ``kernels`` line with each kernel's launches on its main path (the
+    fleet-scale speculative serve for ``route_score``, and its launches
+    on the actor path beside them; execute-serving for the others), its
+    error against the plain version, its time, the plain version's time,
+    the library call's time and its bound, and beside them the same
+    numbers at one full-width bf16 case (``FULL_CASE``);
+14. the last line, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32: TF32 is off for cuBLAS and
 cuDNN. Any failed check exits non-zero; without a card, or outside a
@@ -68,6 +91,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
+import tempfile
 import re
 import shutil
 import statistics
@@ -104,6 +129,10 @@ PATHS = {"scan": dict(chunk=None),
 MAIN_PATH = ("fleet-64", "speculative")
 FULL_CASE = {"rmsnorm": "rows2048-d576", "flash_attention": "smollm-s512",
              "flash_decode": "smollm-cache544-pos543", "ssd": "mamba2-s512"}
+TRAIN_STEPS = 3000                  # AlgoConfig().total_steps 12000, cut
+ACTOR_FLEET = dict(n_cells=16, servers_per_cell=3, drain_rate=20000.0)
+ACTOR_STREAM = dict(scenario="hotspot-cell", num_requests=N_REQUESTS)
+SIM_WINDOW, EVAL_EPISODES = 256, 32
 
 
 def emit(obj):
@@ -859,6 +888,305 @@ def phase_execute_serve(torch, serve_mod, counters):
     return launches
 
 
+def to_device(torch, networks, tree, device):
+    """A tree of tensors (a ``TrainState``, a batch) on ``device``."""
+    return networks.tree_map(
+        lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, tree)
+
+
+def phase_maddpg_train(np, torch, maddpg, env, networks, p):
+    """The trainer at the paper's widths, cut to TRAIN_STEPS steps; then
+    one update timed alone on the card and on the CPU."""
+    cfg = maddpg.AlgoConfig(total_steps=TRAIN_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, metrics = maddpg.train(gen, p, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = {k: v.cpu() for k, v in metrics.items()}
+    for k, v in host.items():
+        check(v.shape == (TRAIN_STEPS,) and bool(torch.isfinite(v).all()),
+              f"maddpg_train: {k} not finite")
+    leaves = []
+    networks.tree_map(leaves.append, (ts.actor, ts.critic))
+    check(all(bool(torch.isfinite(t).all()) for t in leaves),
+          "maddpg_train: non-finite parameters")
+    expected = sum(1 for i in range(TRAIN_STEPS) if i % cfg.update_every == 0
+                   and min(cfg.n_envs * (i + 1), cfg.buffer_capacity)
+                   >= cfg.warmup)
+    check(int(ts.step) == expected,
+          f"maddpg_train: {int(ts.step)} updates, expected {expected}")
+
+    rng = np.random.default_rng(4)
+    b, m, d = cfg.batch_size, p.num_eds, env.obs_dim(p)
+    onehot = np.eye(p.num_ess + 1)[rng.integers(0, p.num_ess + 1, (b, m))]
+    batch = {
+        "obs": rng.random((b, m, d)),
+        "act": np.concatenate([onehot, rng.random((b, m, 2)).round()], -1),
+        "rew": rng.normal(-2.0, 1.0, (b, m)), "next_obs": rng.random((b, m, d)),
+        "done": (rng.random(b) < 0.025).astype(float),
+        "gstate": (rng.random((b, env.global_dim(p))) < 0.5).astype(float),
+        "next_gstate": (rng.random((b, env.global_dim(p))) < 0.5).astype(float),
+    }
+    batch = {k: torch.as_tensor(v, dtype=torch.float32, device="cuda")
+             for k, v in batch.items()}
+    for _ in range(2):
+        maddpg.update(ts, batch, p, cfg)
+    torch.cuda.synchronize()
+    card_ms = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        maddpg.update(ts, batch, p, cfg)
+        stop.record()
+        stop.synchronize()
+        card_ms.append(start.elapsed_time(stop))
+    cpu_ts = to_device(torch, networks, ts, "cpu")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        maddpg.update(cpu_ts, cpu_batch, p, cfg)
+        cpu_ms.append(1e3 * (time.perf_counter() - t1))
+    emit({"phase": "maddpg_train", "num_eds": p.num_eds, "num_ess": p.num_ess,
+          "num_models": p.num_models, "config": cfg._asdict(),
+          "cut": f"total_steps 12000 -> {TRAIN_STEPS}",
+          "updates": int(ts.step), "wall_s": wall,
+          "steps_per_s": TRAIN_STEPS / wall,
+          "env_steps_per_s": TRAIN_STEPS * cfg.n_envs / wall,
+          "ms_per_update": statistics.median(card_ms),
+          "cpu_ms_per_update": statistics.median(cpu_ms),
+          "reward_first_100": float(host["reward"][:100].mean()),
+          "reward_last_100": float(host["reward"][-100:].mean()),
+          "latency_last_100": float(host["latency"][-100:].mean()),
+          "completion_last_100": float(host["completion"][-100:].mean()),
+          "finite": True})
+    return cfg, ts
+
+
+def phase_actor_checkpoint(torch, networks, policies, ts, p, cfg, ckpt):
+    t0 = time.perf_counter()
+    path = policies.save_actor_checkpoint(ckpt, ts.actor, p, cfg)
+    save_s = time.perf_counter() - t0
+    params, spec, extra = policies.load_actor_checkpoint(ckpt, device="cuda")
+    same = []
+    networks.tree_map(lambda a, b: same.append(
+        a.dtype == b.dtype and bool(torch.equal(a, b))), params, ts.actor)
+    check(same and all(same), "actor_checkpoint: restored params differ")
+    emit({"phase": "actor_checkpoint", "files": len(list(path.iterdir())),
+          "bytes": sum(f.stat().st_size for f in path.iterdir()),
+          "save_s": save_s, "leaves": len(same), "bit_identical": True,
+          "spec": spec._asdict(), "extra_kind": extra["kind"]})
+
+
+@contextlib.contextmanager
+def rows_recorded(ops, rows):
+    """``ops.route_score`` (what the router calls) noting each call's rows."""
+    plain = ops.route_score
+
+    def record(prompt_bits, *args, **kwargs):
+        rows.append(int(prompt_bits.shape[0]))
+        return plain(prompt_bits, *args, **kwargs)
+
+    ops.route_score = record
+    try:
+        yield
+    finally:
+        ops.route_score = plain
+
+
+def actor_setup(torch, batch_router, serve_mod, workloads, catalog, device,
+                n=N_REQUESTS):
+    fleet = serve_mod.make_multicell_fleet(
+        ACTOR_FLEET["n_cells"], ACTOR_FLEET["servers_per_cell"], catalog,
+        drain_rate=ACTOR_FLEET["drain_rate"])
+    params, state = batch_router.fleet_from_servers(
+        fleet, catalog, dtype=torch.float32, device=device)
+    reqs = workloads.compile_scenario(
+        workloads.get_scenario(ACTOR_STREAM["scenario"], num_requests=n),
+        seed=0, num_models=len(catalog), num_cells=ACTOR_FLEET["n_cells"],
+        device=device)
+    return params, state, reqs, len(fleet) - 1
+
+
+def actor_policy(name, policies, ckpt, params, state, reqs, columns=None):
+    """(policy, reqs, kwargs) of one actor_serve configuration; for
+    ``actor_full``, ``columns`` (eta, beta) replace the actor's own."""
+    if name == "greedy":
+        return "greedy", reqs, dict(speculative=False)
+    policy = policies.load_actor_policy(ckpt, params)
+    if name == "actor_full":
+        if columns is None:
+            actor, spec, extra = policies.load_actor_checkpoint(
+                ckpt, device=params.flops_per_s.device)
+            columns = policies.actor_action_columns(
+                actor, spec, params, state, reqs,
+                model_aware=extra.get("model_aware", True))
+        dev = params.flops_per_s.device
+        reqs = reqs._replace(eta=columns[0].to(dev), beta=columns[1].to(dev))
+    return policy, reqs, {}
+
+
+def phase_actor_serve(torch, kernel, ops, batch_router, policies, serve_mod,
+                      workloads, catalog, ckpt):
+    def run(name, device, n=N_REQUESTS, columns=None):
+        params, state, reqs, cloud = actor_setup(
+            torch, batch_router, serve_mod, workloads, catalog, device, n)
+        t0 = time.perf_counter()
+        policy, reqs, kw = actor_policy(name, policies, ckpt, params, state,
+                                        reqs, columns)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        columns_s = time.perf_counter() - t0
+        rows = []
+        with rows_recorded(ops, rows):
+            kernel.route_score.launches = 0
+            t0 = time.perf_counter()
+            st, out = batch_router.route_batch(params, state, reqs,
+                                               policy=policy, chunk=CHUNK,
+                                               **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            route_s = time.perf_counter() - t0
+            launches = kernel.route_score.launches
+        host = {k: v.cpu() for k, v in dict(
+            choice=out.choice, cause=out.cause, hit=out.hit,
+            latency=out.latency).items()}
+        host["eta"], host["beta"] = (
+            (None, None) if reqs.eta is None
+            else (reqs.eta.cpu(), reqs.beta.cpu()))
+        return (host, batch_router.stats(out, cloud_index=cloud), route_s,
+                columns_s, launches, rows, getattr(policy, "replays", None))
+
+    for name in ("greedy", "actor", "actor_full"):
+        run(name, "cuda", CHUNK)      # warm-up: first-use costs
+    launches_by = {}
+    for name in ("greedy", "actor", "actor_full"):
+        gpu, stats, route_s, columns_s, launches, rows, replays = run(
+            name, "cuda")
+        facts = {}
+        if name == "actor_full":
+            # the card's eq. 16 columns route on both devices; the CPU's
+            # own columns agree within 1e-6 absolute (float32 sigmoid
+            # tails), beta exactly
+            params_c, state_c, reqs_c, _ = actor_setup(
+                torch, batch_router, serve_mod, workloads, catalog, "cpu")
+            actor_c, spec_c, _ = policies.load_actor_checkpoint(
+                ckpt, device="cpu")
+            eta_c, beta_c = policies.actor_action_columns(
+                actor_c, spec_c, params_c, state_c, reqs_c)
+            check(torch.equal(beta_c, gpu["beta"]),
+                  "actor_full: beta columns differ between card and CPU")
+            eta_err = float((eta_c - gpu["eta"]).abs().max())
+            check(eta_err <= 1e-6, f"actor_full: eta columns {eta_err} apart")
+            facts = {"eta_max_abs_diff_vs_cpu": eta_err,
+                     "beta_equal_cpu": True,
+                     "eta_mean": float(gpu["eta"].mean()),
+                     "beta_rate": float(gpu["beta"].float().mean())}
+        cpu, _, cpu_s, _, _, cpu_rows, cpu_replays = run(
+            name, "cpu", columns=(gpu["eta"], gpu["beta"])
+            if name == "actor_full" else None)
+        for k in ("choice", "cause", "hit"):
+            check(torch.equal(gpu[k], cpu[k]), f"actor_serve {name}: {k} "
+                  "differs between the card and the CPU")
+        done = gpu["choice"] >= 0
+        lat_err = float((gpu["latency"][done].double()
+                         - cpu["latency"][done].double()).abs().max())
+        check(torch.allclose(gpu["latency"][done], cpu["latency"][done],
+                             rtol=1e-6, atol=0.0),
+              f"actor_serve {name}: card vs CPU latency {lat_err}")
+        check(bool(torch.isfinite(gpu["latency"][done]).all()),
+              f"actor_serve {name}: non-finite latency")
+        check(launches == len(rows) == N_REQUESTS // CHUNK,
+              f"actor_serve {name}: {launches} launches for {len(rows)} "
+              f"calls, expected {N_REQUESTS // CHUNK}")
+        check(rows == cpu_rows and replays == cpu_replays,
+              f"actor_serve {name}: calls or replays differ from the CPU")
+        launches_by[name] = launches
+        emit({"phase": "actor_serve", "policy": name,
+              "requests": N_REQUESTS, "cells": ACTOR_FLEET["n_cells"],
+              "servers": ACTOR_FLEET["n_cells"]
+              * ACTOR_FLEET["servers_per_cell"] + 1,
+              "scenario": ACTOR_STREAM["scenario"], "chunk": CHUNK,
+              "route_s": route_s, "columns_s": columns_s,
+              "cpu_route_s": cpu_s, "route_score_launches": launches,
+              "route_score_rows": {str(r): rows.count(r) for r in set(rows)},
+              "chunks_replayed": replays,
+              "completion_rate": stats["completion_rate"],
+              "residency_hit_rate": stats["residency_hit_rate"],
+              "cloud_fallback_rate": stats["cloud_fallback_rate"],
+              "mean_latency": stats["mean_latency"],
+              "max_abs_latency_diff_vs_cpu": lat_err,
+              "decisions_equal_cpu": True, **facts})
+        if name == "actor":
+            actor_stats = stats
+    served = serve_mod.serve(
+        num_requests=N_REQUESTS, n_servers=ACTOR_FLEET["servers_per_cell"],
+        n_cells=ACTOR_FLEET["n_cells"], drain_rate=ACTOR_FLEET["drain_rate"],
+        scenario=ACTOR_STREAM["scenario"], chunk=CHUNK, gen_tokens=None,
+        policy=f"actor:{ckpt}", execute=False, device="cuda")
+    same = all(served[k] == v for k, v in actor_stats.items())
+    check(same, "actor_serve: serve(policy='actor:<ckpt>') stats differ "
+          "from the direct route")
+    emit({"phase": "actor_serve", "policy": "serve(actor:<ckpt>)",
+          "route_s": served["route_s"], "stats_equal_direct_route": same})
+    return launches_by
+
+
+def phase_simulate(np, torch, batch_router, policies, serve_mod, workloads,
+                   catalog, ckpt):
+    for name in ("greedy", "actor"):
+        series, secs = {}, {}
+        for device in ("cuda", "cpu"):
+            params, state, reqs, cloud = actor_setup(
+                torch, batch_router, serve_mod, workloads, catalog, device)
+            policy, reqs, _ = actor_policy(name, policies, ckpt, params,
+                                           state, reqs)
+            t0 = time.perf_counter()
+            _, _, series[device] = workloads.simulate(
+                params, state, reqs, policy=policy,
+                window_requests=SIM_WINDOW, chunk=CHUNK, cloud_index=cloud)
+            secs[device] = time.perf_counter() - t0
+        gpu, cpu = series["cuda"], series["cpu"]
+        check(np.array_equal(gpu.requests, cpu.requests),
+              f"simulate {name}: window sizes differ")
+        worst = 0.0
+        for f in gpu._fields:
+            a, b = getattr(gpu, f), getattr(cpu, f)
+            check((a is None) == (b is None), f"simulate {name}: {f}")
+            if a is None:
+                continue
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            check(np.allclose(a, b, rtol=1e-6, atol=0.0, equal_nan=True),
+                  f"simulate {name}: {f} differs from the CPU")
+            fin = np.isfinite(b) & (b != 0)
+            if fin.any():
+                worst = max(worst, float(np.max(np.abs(a[fin] - b[fin])
+                                                / np.abs(b[fin]))))
+        emit({"phase": "simulate", "policy": name, "windows": len(gpu.requests),
+              "window_requests": SIM_WINDOW, "sim_s": secs["cuda"],
+              "cpu_sim_s": secs["cpu"],
+              "mean_latency_by_window": gpu.mean_latency.tolist(),
+              "residency_hit_rate_by_window": gpu.residency_hit_rate.tolist(),
+              "queue_p90_last": float(gpu.queue_p90[-1]),
+              "max_rel_diff_vs_cpu": worst, "series_equal_cpu": True})
+
+
+def phase_evaluate(torch, evaluate, p, cfg, ts):
+    for name in ("actor", "random", "greedy"):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        t0 = time.perf_counter()
+        out = evaluate.evaluate_policy(
+            gen, name, p, cfg, ts.actor if name == "actor" else None,
+            episodes=EVAL_EPISODES, device="cuda")
+        check(all(math.isfinite(v) for v in out.values()),
+              f"evaluate {name}: non-finite metric")
+        emit({"phase": "evaluate", "policy": name, "episodes": EVAL_EPISODES,
+              "seconds": time.perf_counter() - t0, **out})
+
+
 def kernel_entry(name, source, replaces, launches, results):
     """The ``kernels`` line's entry: execute-serving's case for the times,
     the largest float32 and bf16 errors over all cases, and the full-width
@@ -896,7 +1224,10 @@ def main():
     sys.path.insert(0, str(SRC))
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch import configs
+    from repro_torch import configs, workloads
+    from repro_torch.core import (batch_router, env, evaluate, maddpg,
+                                  networks, policies)
+    from repro_torch.core.catalog import build_catalog, env_params_from_catalog
     from repro_torch.kernels import (cuda_build, flash_attention, flash_decode,
                                      ops, ref, rmsnorm, ssd_scan)
     from repro_torch.kernels import route_score as kernel
@@ -916,9 +1247,21 @@ def main():
     phase_lm_parity(np, torch, lm, configs, serve_mod.EDGE_ARCHS)
     phase_full_width(np, torch, lm, configs, counters)
     exec_launches = phase_execute_serve(torch, serve_mod, counters)
+    t_actor = time.perf_counter()
+    catalog = build_catalog(serve_mod.EDGE_ARCHS)
+    p = env_params_from_catalog(catalog, num_eds=10, num_ess=3)
+    cfg, ts = phase_maddpg_train(np, torch, maddpg, env, networks, p)
+    with tempfile.TemporaryDirectory() as ckpt:
+        phase_actor_checkpoint(torch, networks, policies, ts, p, cfg, ckpt)
+        actor_launches = phase_actor_serve(
+            torch, kernel, ops, batch_router, policies, serve_mod, workloads,
+            catalog, ckpt)
+        phase_simulate(np, torch, batch_router, policies, serve_mod,
+                       workloads, catalog, ckpt)
+    phase_evaluate(torch, evaluate, p, cfg, ts)
     t_end = time.perf_counter()
     emit({"phase": "timing", "total_s": t_end - t_start,
-          "lm_phases_s": t_end - t_lm})
+          "lm_phases_s": t_actor - t_lm, "actor_phases_s": t_end - t_actor})
     main = scores[("main-path-base", "float32")]
     floor = scores[("launch-floor", "float32")]
     err = max(r["max_abs_err"] for (case, dt), r in scores.items()
@@ -928,7 +1271,8 @@ def main():
         "name": "route_score", "route": "cuda",
         "source": f"{csrc}/route_score.cu",
         "replaces": f"{pallas}/route_score.py:212",
-        "launches": main_launches, "max_abs_err": err,
+        "launches": main_launches,
+        "launches_actor_serve": actor_launches, "max_abs_err": err,
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,

@@ -50,9 +50,27 @@ queue depths ``+inf``-masked like ``lats``. ``needs_ctx = True`` calls
 it as ``policy_fn(lats, obs, queue, ctx)`` with a per-request
 ``PolicyCtx``. A choice outside ``[0, N)`` or on an invisible server
 falls back to the masked greedy argmin, so a policy can never corrupt
-the fleet state. Builtins: ``greedy``, ``load``, ``drain``. The trained
-actor (``actor=``, the chunk-level ``chunk_precompute``/``chunk_apply``
-hook) comes with the policies slice of the port.
+the fleet state. Builtins: ``greedy``, ``load``, ``drain``, and
+``actor``: ``route_batch(policy="actor", actor=fn)`` calls
+``fn(obs, lats)`` with the scalar router's observation, as the scalar
+oracle calls its actor. Trained MADDPG-MATO actors come from
+``core.policies.make_actor_policy`` as a ``needs_ctx`` policy.
+
+Chunk-level hook (the batched-actor fast path): a ``needs_ctx`` policy
+may also define
+
+* ``chunk_precompute(cctx: ChunkPolicyCtx) -> aux``: called once per
+  chunk (chunked path only) with the chunk's request columns and the
+  CHUNK-ENTRY residency; returns a tuple of ``(c, ...)`` tensors (the
+  actor's MLP batched over the chunk);
+* ``chunk_apply(aux_b, ctx) -> (server index, exact)``: called per step
+  instead of the policy, with that request's slice of ``aux`` and the
+  live ``PolicyCtx``. It resolves the precomputed table against the
+  live state and flags drift: ``exact=False`` on any step makes the
+  router rerun the whole chunk through the per-request path, from a
+  copy of the chunk-entry state. The flags are combined on the device
+  and read on the host once a chunk; a policy with a ``replays``
+  attribute has it raised by one for each chunk replayed.
 
 Multi-cell fleets, time drain and the robustness / eq. 16 knobs
 (``cell``, ``drain_rate``/``arrival_s``, ``deadline_s``, ``spill``,
@@ -331,6 +349,23 @@ class PolicyCtx(NamedTuple):
     cell: Optional[torch.Tensor] = None  # () None when untopologied
 
 
+class ChunkPolicyCtx(NamedTuple):
+    """Chunk-level context for policies with a ``chunk_precompute`` hook.
+
+    The request columns cover one whole chunk (raw prompt and gen, as
+    the policies see them); ``resident`` is the fleet residency AT CHUNK
+    ENTRY: decisions precomputed against it are provisional, and
+    ``chunk_apply`` must detect drift per request."""
+
+    params: FleetParams
+    model: torch.Tensor        # (c,) tagged catalogue indices
+    prompt_bits: torch.Tensor  # (c,)
+    gen_tokens: torch.Tensor   # (c,)
+    flops_tok: torch.Tensor    # (c,)
+    resident: torch.Tensor     # (N, K) bool chunk-entry residency
+    cell: Optional[torch.Tensor] = None  # (c,) None when untopologied
+
+
 def _greedy_policy(lats, obs, queue):
     return torch.argmin(lats)
 
@@ -364,7 +399,17 @@ _drain_policy.needs_ctx = True
 _ARGMIN_POLICIES = (_greedy_policy, _load_policy, _drain_policy)
 
 
-def _resolve_policy(policy):
+def _make_actor_policy(actor):
+    """``actor(obs, lats) -> server index`` as a policy: the scalar
+    oracle's actor contract on the batched router's tensors."""
+    def policy(lats, obs, queue):
+        return actor(obs, lats)
+
+    policy.needs_obs = True
+    return policy
+
+
+def _resolve_policy(policy, actor=None):
     if callable(policy):
         return policy
     if policy == "greedy":
@@ -374,10 +419,9 @@ def _resolve_policy(policy):
     if policy == "drain":
         return _drain_policy
     if policy == "actor":
-        raise NotImplementedError(
-            "policy='actor' (trained MADDPG-MATO actor serving) is not "
-            "ported yet: it comes with the policies slice of the port"
-        )
+        if actor is None:
+            raise ValueError("policy='actor' requires an actor callable")
+        return _make_actor_policy(actor)
     raise ValueError(f"unknown policy {policy!r}")
 
 
@@ -445,6 +489,7 @@ def route_batch(
     drain_tokens=None,
     *,
     policy="greedy",
+    actor=None,
     chunk: Optional[int] = None,
     speculative: bool = True,
     outage=None,
@@ -455,7 +500,9 @@ def route_batch(
     ``ModelAwareRouter.route`` calls, each followed by
     ``drain(drain_tokens)`` (scalar or (B,); ``None`` skips it).
     ``outage`` is an (N,) bool fault mask (``+inf`` column, frozen
-    queue). ``chunk`` selects the two-phase commit (one kernel launch per
+    queue). ``policy`` is a builtin name or a callable (see the module
+    docstring); ``policy="actor"`` takes its callable from ``actor``.
+    ``chunk`` selects the two-phase commit (one kernel launch per
     chunk); ``speculative`` the greedy prefix commit on top of it
     (``False`` forces the plain correction loop). Integer decisions and
     fleet state are identical on every path; the tensors' device decides
@@ -466,7 +513,7 @@ def route_batch(
         raise ValueError(f"request model index outside [0, {num_k})")
     if chunk is not None and int(chunk) < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    policy_fn = _resolve_policy(policy)
+    policy_fn = _resolve_policy(policy, actor)
     return _route_core(params, state, reqs, drain_tokens, policy_fn,
                        chunk=chunk, speculative=speculative, outage=outage)
 
@@ -732,6 +779,7 @@ def _scan_chunked(params, reqs, carry, policy_fn, *, chunk, speculative,
     needs_obs = getattr(policy_fn, "needs_obs", True)
     needs_ctx = getattr(policy_fn, "needs_ctx", False)
     needs_clamp = policy_fn not in _ARGMIN_POLICIES
+    has_hook = needs_ctx and hasattr(policy_fn, "chunk_precompute")
     use_spec = speculative and policy_fn is _greedy_policy
     iota_n = torch.arange(n, device=dev)
     num_k = params.size_bits.shape[0]
@@ -766,8 +814,11 @@ def _scan_chunked(params, reqs, carry, policy_fn, *, chunk, speculative,
             d = torch.where(outage, 0.0, d)
         return torch.clamp_min(queue - d, 0.0)
 
-    def step(i, base_b, lru, queue, clock, time_s):
-        """One correction step (request ``i`` of the padded stream)."""
+    def step(i, base_b, lru, queue, clock, time_s, aux_b=None):
+        """One correction step (request ``i`` of the padded stream).
+        ``aux_b``: the chunk hook's slice for this request, or None.
+        Returns the carry, the outputs and the hook's ``exact`` flag
+        (None without the hook)."""
         model_b, valid_b = model[i], at(valid, i)
         if has_time:
             queue, time_s = decay(queue, time_s, arrs[i], valid_b)
@@ -789,14 +840,22 @@ def _scan_chunked(params, reqs, carry, policy_fn, *, chunk, speculative,
         queue_vis = queue
         if has_mask:  # visibility/outage rides in base as +inf
             queue_vis = torch.where(torch.isfinite(base_b), queue, math.inf)
-        ctx = None
+        ctx = exact = None
         if needs_ctx:
             ctx = PolicyCtx(
                 params=params, model=model_b, prompt_bits=prompt[i],
                 gen_tokens=gen[i], flops_tok=flops_tok[i],
                 resident=resident_m, queue=queue, cell=at(cells, i),
             )
-        choice = _call_policy(policy_fn, lats, obs, queue_vis, ctx)
+        if aux_b is not None:
+            # the chunk hook resolves the precomputed decision against
+            # the live state; inert pad rows never ask for a replay
+            choice, exact = policy_fn.chunk_apply(aux_b, ctx)
+            choice = torch.as_tensor(choice, device=dev).long()
+            if valid_b is not None:
+                exact = exact | ~valid_b
+        else:
+            choice = _call_policy(policy_fn, lats, obs, queue_vis, ctx)
         if needs_clamp:
             choice = _clamp_choice(choice, lats, has_mask)
 
@@ -817,7 +876,7 @@ def _scan_chunked(params, reqs, carry, policy_fn, *, chunk, speculative,
             iota_n, num_k)
         if drains is not None:
             queue = drain_step(queue, drains[i], valid_b)
-        return queue, clock, time_s, (out_choice, lat_b, hit)
+        return queue, clock, time_s, (out_choice, lat_b, hit), exact
 
     def phase1(lo, hi):
         # ONE fused kernel launch scores the whole chunk: the switch-free
@@ -837,13 +896,38 @@ def _scan_chunked(params, reqs, carry, policy_fn, *, chunk, speculative,
             base = torch.where(outage[None, :], math.inf, base)
         return base
 
+    def correction_loop(lo, hi, base, lru, queue, clock, time_s, aux):
+        outs, exact = [], None
+        for j, i in enumerate(range(lo, hi)):
+            aux_b = None if aux is None else tuple(a[j] for a in aux)
+            queue, clock, time_s, out, ex = step(i, base[j], lru, queue,
+                                                 clock, time_s, aux_b)
+            outs.append(out)
+            if ex is not None:
+                exact = ex if exact is None else exact & ex
+        return queue, clock, time_s, outs, exact
+
     def chunk_step(lo, hi, lru, queue, clock, time_s):
         base = phase1(lo, hi)
-        outs = []
-        for j, i in enumerate(range(lo, hi)):
-            queue, clock, time_s, out = step(i, base[j], lru, queue, clock,
-                                             time_s)
-            outs.append(out)
+        aux = None
+        if has_hook:
+            # batch the policy's per-request work (the actor's MLP) over
+            # the chunk against the CHUNK-ENTRY residency; steps resolve
+            # it against the live state and flag what they cannot
+            entry = (lru.clone(), queue, clock, time_s)
+            aux = policy_fn.chunk_precompute(ChunkPolicyCtx(
+                params=params, model=model[lo:hi], prompt_bits=prompt[lo:hi],
+                gen_tokens=gen[lo:hi], flops_tok=flops_tok[lo:hi],
+                resident=(lru[:num_k] < _LRU_FREE).T,
+                cell=cells[lo:hi] if has_cells else None))
+        queue, clock, time_s, outs, exact = correction_loop(
+            lo, hi, base, lru, queue, clock, time_s, aux)
+        if exact is not None and not bool(exact):  # one host read a chunk
+            # replay the chunk through the per-request path from its entry
+            policy_fn.replays = getattr(policy_fn, "replays", 0) + 1
+            lru.copy_(entry[0])
+            queue, clock, time_s, outs, _ = correction_loop(
+                lo, hi, base, lru, *entry[1:], None)
         och, olat, ohit = (torch.stack(col) for col in zip(*outs))
         return queue, clock, time_s, (och, olat, ohit)
 
@@ -947,8 +1031,8 @@ def _scan_chunked(params, reqs, carry, policy_fn, *, chunk, speculative,
         # ... and replay the conflicting suffix with the correction body
         # (live residency — bit-identical to the non-speculative path)
         for j in range(i0, c):
-            queue, clock, time_s, out = step(lo + j, base[j], lru, queue,
-                                             clock, time_s)
+            queue, clock, time_s, out, _ = step(lo + j, base[j], lru, queue,
+                                                clock, time_s)
             och[j], olat[j], ohit[j] = out
         return queue, clock, time_s, (och, olat, ohit)
 

@@ -45,3 +45,13 @@ def build_catalog(archs=None) -> list[CatalogEntry]:
             )
         )
     return entries
+
+
+def env_params_from_catalog(entries, **kwargs):
+    """Paper-env parameters whose model sizes are the REAL catalogue sizes
+    (clipped to edge-servable members — an ES cannot host llama3-405b)."""
+    from repro_torch.core import env as env_lib
+
+    servable = [e for e in entries if e.param_count < 20e9]
+    p = env_lib.default_params(num_models=len(servable), **kwargs)
+    return p._replace(model_bits=tuple(e.size_bits for e in servable))

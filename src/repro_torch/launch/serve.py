@@ -20,8 +20,9 @@ catalogue entry (weights drawn on the CPU from a generator seeded with
 the entry's index, then moved to the device), an 8-token zero prompt
 prefilled and ``gen_tokens`` tokens decoded greedily through
 ``models/lm.py``, whose kernels (rmsnorm, flash attention, flash decode,
-the SSD scan) run on the card. Trained-actor policies come with the
-policies slice of the port.
+the SSD scan) run on the card. ``--policy actor:<ckpt_dir>`` serves a
+trained MADDPG-MATO actor restored from a checkpoint directory
+(``core.policies.save_actor_checkpoint``, which either package writes).
 
     python -m repro_torch.launch.serve --requests 32 --servers 3
     python -m repro_torch.launch.serve --requests 4096 --servers 64 \
@@ -29,6 +30,8 @@ policies slice of the port.
     python -m repro_torch.launch.serve --requests 4096 --servers 16 \
         --cells 4 --drain-rate 20000 --scenario slo-mix --chunk 256 \
         --no-execute
+    python -m repro_torch.launch.serve --requests 1024 --servers 3 \
+        --policy actor:<ckpt_dir> --chunk 256 --no-execute
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, reduced
-from repro_torch.core import batch_router
+from repro_torch.core import batch_router, policies
 from repro_torch.core.catalog import build_catalog
 from repro_torch.core.router import CLOUD_CELL, EdgeServer
 from repro_torch.device import resolve_device
@@ -97,16 +100,38 @@ def make_multicell_fleet(n_cells: int, servers_per_cell: int, catalog,
     return fleet
 
 
-def resolve_policy_flag(policy):
-    """CLI policy flag -> ``route_batch`` policy. Builtin names and
-    callables pass through; ``actor:<ckpt_dir>`` exits with a message
-    until the policies slice of the port lands."""
+def resolve_policy_flag(policy, fleet_params):
+    """CLI policy flag -> ``route_batch`` policy. ``actor:<ckpt_dir>``
+    restores a trained MADDPG-MATO actor through ``core.policies`` onto
+    the fleet's device; everything else passes through (builtin name or
+    callable).
+
+    Checkpoint problems surface as a clean ``SystemExit`` (missing dir,
+    no committed step, corrupt manifest/arrays, wrong checkpoint kind)
+    instead of a traceback from deep inside the restore path."""
     if isinstance(policy, str) and policy.startswith("actor:"):
-        raise SystemExit(
-            "serve: --policy actor:<ckpt> (trained MADDPG-MATO actor "
-            "serving) is not ported yet; it comes with the policies slice "
-            "of the port. Use greedy, load or drain."
-        )
+        ckpt = policy.split(":", 1)[1]
+        if not ckpt:
+            raise SystemExit(
+                "serve: --policy actor: needs a checkpoint directory, e.g. "
+                "--policy actor:benchmarks/results/actor_ckpt"
+            )
+        try:
+            return policies.load_actor_policy(ckpt, fleet_params)
+        except (FileNotFoundError, NotADirectoryError) as e:
+            raise SystemExit(
+                f"serve: no actor checkpoint at {ckpt!r}: {e}\n"
+                "train one with benchmarks/policy_serving.py (it saves "
+                "under benchmarks/results/actor_ckpt)"
+            ) from e
+        except (ValueError, KeyError, OSError, TypeError) as e:
+            raise SystemExit(
+                f"serve: could not restore actor checkpoint {ckpt!r}: "
+                f"{type(e).__name__}: {e}\n"
+                "the directory exists but is not a readable "
+                "core.policies.save_actor_checkpoint layout "
+                "(step_<N>/manifest.json + committed arrays)"
+            ) from e
     return policy
 
 
@@ -159,7 +184,7 @@ def serve(num_requests=32, n_servers=3, policy="greedy", execute=True, seed=0,
     # float32 throughout, the precision the JAX package serves in
     fleet_params, fleet_state = batch_router.fleet_from_servers(
         fleet, catalog, dtype=torch.float32, device=device)
-    policy = resolve_policy_flag(policy)
+    policy = resolve_policy_flag(policy, fleet_params)
 
     # local reduced models actually generate tokens for routed requests
     models = {}
@@ -240,7 +265,8 @@ def main(argv=None):
                     help="constant generation length (default 8); pass 0 "
                          "to serve the scenario's [lo, hi) length range")
     ap.add_argument("--policy", default="greedy",
-                    help="greedy | load | drain")
+                    help="greedy | load | drain | actor:<ckpt_dir> (a "
+                         "trained MADDPG-MATO actor checkpoint)")
     ap.add_argument("--chunk", type=int, default=None,
                     help="two-phase commit chunk size (None = single-loop "
                          "path; 256 at fleet scale)")

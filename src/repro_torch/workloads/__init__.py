@@ -8,8 +8,11 @@
     ``ScenarioSpec``, the registry of the 9 named scenarios, ``FaultSpec``
     and ``compile_scenario``, which turns a spec into a
     ``core.batch_router.RequestBatch`` on a named device.
-
-The windowed simulator (``repro.workloads.simulate``) is not ported yet.
+  * :mod:`repro_torch.workloads.simulate` — the long-horizon episode
+    runner: windows a stream into ``route_batch`` calls, carries the
+    ``FleetState`` across windows and aggregates per-window series. Its
+    mesh-sharded windows (``mesh=``/``num_devices=``) come with ROADMAP
+    Queue 1 item 10.
 """
 from repro_torch.workloads.scenario import (  # noqa: F401
     FaultSpec,
@@ -19,3 +22,4 @@ from repro_torch.workloads.scenario import (  # noqa: F401
     list_scenarios,
     register,
 )
+from repro_torch.workloads.simulate import SimResult, simulate  # noqa: F401

@@ -84,8 +84,18 @@ def _imported_roots(path):
     return roots
 
 
+#: the MADDPG-MATO plane's modules, new or extended for it
+ACTOR_PLANE = ("core/types.py", "core/catalog.py", "core/networks.py",
+               "checkpoint/checkpointer.py", "core/env.py", "core/replay.py",
+               "optim/adamw.py", "core/maddpg.py", "core/baselines.py",
+               "core/evaluate.py", "core/policies.py", "core/batch_router.py",
+               "launch/serve.py", "workloads/simulate.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    pkg = REPO / "src" / "repro_torch"
+    files = sorted(pkg.rglob("*.py"))
+    assert {str(p.relative_to(pkg)) for p in files} >= set(ACTOR_PLANE)
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     for path in files:
@@ -161,10 +171,53 @@ def test_generate_matches_the_reference_loop(arch):
     assert np.array_equal(got.numpy(), np.concatenate(expect, axis=1))
 
 
-def test_unported_parts_say_which_slice_brings_them():
-    with pytest.raises(SystemExit, match="policies slice"):
+def test_unported_parts_say_which_slice_brings_them(tmp_path):
+    """What is still unported names its ROADMAP item; an actor
+    checkpoint that is not there exits with the reference's message."""
+    from repro_torch.core import policies
+    from repro_torch.workloads import simulate
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        policies.actor_policy_for_cell_blocks(None, None, None)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        simulate(None, None, None, mesh=object())
+    for bad in ("actor:" + str(tmp_path / "missing"), "actor:"):
+        with pytest.raises(SystemExit) as port_exit:
+            tserve.serve(num_requests=8, execute=False, device="cpu",
+                         policy=bad)
+        with pytest.raises(SystemExit) as ref_exit:
+            rserve.serve(num_requests=8, execute=False, policy=bad)
+        assert str(port_exit.value) == str(ref_exit.value)
+        assert ("no actor checkpoint at" in str(port_exit.value)
+                or bad == "actor:")
+    (tmp_path / "bad" / "step_0").mkdir(parents=True)
+    (tmp_path / "bad" / "step_0" / "manifest.json").write_text("{}")
+    with pytest.raises(SystemExit, match="could not restore"):
         tserve.serve(num_requests=8, execute=False, device="cpu",
-                     policy="actor:some/ckpt")
+                     policy="actor:" + str(tmp_path / "bad"))
+
+
+@pytest.mark.parametrize("chunk", [None, 32])
+def test_serve_routes_a_saved_actor(tmp_path, chunk):
+    """``serve(policy="actor:<ckpt>")`` restores a checkpoint the JAX
+    package saved and serves it with the reference's routing stats."""
+    from repro.core import maddpg as j_maddpg
+    from repro.core import networks as j_networks
+    from repro.core import policies as j_policies
+    from repro.core.catalog import build_catalog, env_params_from_catalog
+    p = env_params_from_catalog(build_catalog(tserve.EDGE_ARCHS), num_eds=2,
+                                num_ess=3)
+    cfg = j_maddpg.AlgoConfig(hidden=16)
+    j_policies.save_actor_checkpoint(
+        tmp_path, j_networks.stacked_init(jax.random.key(2), 2,
+                                          j_maddpg.actor_sizes(p, cfg)),
+        p, cfg)
+    kw = dict(num_requests=64, n_servers=3, chunk=chunk,
+              policy=f"actor:{tmp_path}", execute=False)
+    got = _routing_stats(tserve.serve(device="cpu", **kw))
+    ref = _routing_stats(rserve.serve(**kw))
+    assert got.pop("mean_latency") == pytest.approx(ref.pop("mean_latency"),
+                                                    rel=1e-6, abs=0.0)
+    assert got == ref and got["residency_hit_rate"] < 1.0
 
 
 def test_cli_routes_on_the_named_device(capsys):
