@@ -36,19 +36,27 @@ Phases, one JSON line each (after the card's name and power limit):
    number of key splits the wrapper plans for each case; rmsnorm also at
    a decode step's 4 rows; the SSD scan also at batch 4, at S 2048 and
    with the model's own decay rates, and against its plain version in the
-   kernel's order, ``ref.ssd_tiled_ref``), at the JAX package's
+   kernel's order, ``ref.ssd_tiled_ref``; flash attention and flash decode
+   also at zamba2-7b's head size 112: its prefill, 4 x 512 over 32/32
+   heads, and its decode over a 544-slot cache at pos 543), at the JAX
+   package's
    kernel-test tolerances (float32 2e-5, bf16 2e-2; the SSD scan 5e-4 /
    5e-2); time the kernel, the plain version and one PyTorch library call
    where there is one, and compute the bound; then time rmsnorm's wide
    rows with one, two and four warps a row;
-5. LM parity: each edge arch at ``reduced()``, the same weights on the
-   card and on the CPU, a prefill of 8 tokens and 8 teacher-forced decode
-   steps, every step's logits within atol=rtol=1e-4;
-6. full width: smollm-135m at its published config and mamba2-2.7b at
-   full width (depth cut, printed), a prefill of 4 x 512 tokens and 32
-   decode steps; tokens/s, each kernel's launches, finite logits, and one
-   more prefill under the profiler: the device's busy share and its
-   heaviest kernels;
+5. LM parity: each of the ten archs at ``reduced()``, the same weights
+   on the card and on the CPU, a prefill of 8 tokens and 8 teacher-forced
+   decode steps (pixtral with numpy-drawn patch embeddings), every step's
+   logits within atol=rtol=1e-4; the MoE archs' top-k expert ids of every
+   layer identical on one numpy-drawn input; and smollm-135m with the
+   int8 KV cache, 16 decode steps from an empty cache;
+6. full width: smollm-135m and zamba2-7b at their published configs,
+   mamba2-2.7b and mixtral-8x7b at full width (depth cut, printed), bf16
+   weights drawn on the card from a seed, a prefill of 4 x 512 tokens and
+   32 decode steps; tokens/s, peak memory, each kernel's launches (the
+   counts set to 0 just before each arch's timed run and read just after),
+   finite logits, and one more prefill under the profiler: the device's
+   busy share and its heaviest kernels;
 7. serving with execution: ``serve(execute=True)`` for 32 requests on 3
    servers, routing stats equal to the route-only run, every LM kernel
    launched;
@@ -76,10 +84,11 @@ Phases, one JSON line each (after the card's name and power limit):
     latency, printed, not held;
 13. a ``kernels`` line with each kernel's launches on its main path (the
     fleet-scale speculative serve for ``route_score``, and its launches
-    on the actor path beside them; execute-serving for the others), its
+    on the actor path beside them; execute-serving for the others, and
+    their launches on each full-width arch's run beside them), its
     error against the plain version, its time, the plain version's time,
     the library call's time and its bound, and beside them the same
-    numbers at one full-width bf16 case (``FULL_CASE``);
+    numbers at each full-width arch's bf16 case (``FULL_CASE``);
 14. the last line, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32: TF32 is off for cuBLAS and
@@ -115,7 +124,11 @@ LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX kernel tests'
 SSD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
 PARITY_TOL = 1e-4                   # card vs CPU logits, reduced() float32
 FULL_BATCH, FULL_PROMPT, FULL_DECODE = 4, 512, 32
-FULL_WIDTH = {"smollm_135m": {}, "mamba2_2p7b": {"num_layers": 8}}
+FULL_WIDTH = {"smollm_135m": {}, "mamba2_2p7b": {"num_layers": 8},
+              # 32 layers are ~93 GB in bf16, past the card's 80 GB
+              "mixtral_8x7b": {"num_layers": 4}, "zamba2_7b": {}}
+PARITY_ARCHS = ["llama3_405b", "qwen3_32b", "pixtral_12b", "mixtral_8x7b",
+                "qwen3_moe_235b_a22b", "zamba2_7b"]  # after the edge archs
 EXEC_SERVE = dict(num_requests=32, n_servers=3, gen_tokens=8)
 N_REQUESTS, CHUNK = 4096, 256
 CONFIGS = {
@@ -127,8 +140,11 @@ PATHS = {"scan": dict(chunk=None),
          "correction": dict(chunk=CHUNK, speculative=False),
          "speculative": dict(chunk=CHUNK, speculative=True)}
 MAIN_PATH = ("fleet-64", "speculative")
-FULL_CASE = {"rmsnorm": "rows2048-d576", "flash_attention": "smollm-s512",
-             "flash_decode": "smollm-cache544-pos543", "ssd": "mamba2-s512"}
+FULL_CASE = {"rmsnorm": ("rows2048-d576", "rows2048-d4096", "rows2048-d3584"),
+             "flash_attention": ("smollm-s512", "mixtral-s512", "zamba2-s512"),
+             "flash_decode": ("smollm-cache544-pos543", "mixtral-cache544-pos543",
+                              "zamba2-cache544-pos543"),
+             "ssd": ("mamba2-s512", "zamba2-s512-b4")}
 TRAIN_STEPS = 3000                  # AlgoConfig().total_steps 12000, cut
 ACTOR_FLEET = dict(n_cells=16, servers_per_cell=3, drain_rate=20000.0)
 ACTOR_STREAM = dict(scenario="hotspot-cell", num_requests=N_REQUESTS)
@@ -537,14 +553,15 @@ def nbytes_of(*tensors):
 def lm_cases(np, torch, F, ref, ops):
     """(kernel, case, dtype, kernel call, plain call, library call or None,
     bound (ms, by), tolerance, facts of the case): execute-serving's shapes
-    first (float32, ``reduced()``), then the edge archs' full widths in
+    first (float32, ``reduced()``), then the full-width archs' shapes in
     float32 and bf16."""
     from repro_torch.kernels.flash_decode import plan_splits
 
     rng = np.random.default_rng(12)
     later = np.random.default_rng(14)  # cases added later draw from here, so
-    sms = torch.cuda.get_device_properties(0).multi_processor_count  # the
-    # earlier cases keep their inputs
+    zoo = np.random.default_rng(15)    # the earlier cases keep their inputs;
+    # mixtral's and zamba2's cases draw from ``zoo``
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(shape, dt, gen=rng):
         return torch.as_tensor(gen.standard_normal(shape).astype(np.float32),
@@ -552,6 +569,8 @@ def lm_cases(np, torch, F, ref, ops):
 
     heads = {"smollm": (9, 3, 64), "starcoder2": (24, 2, 128),
              "musicgen": (24, 24, 64)}
+    zoo_heads = {"mixtral": (32, 8, 128), "zamba2": (32, 32, 112)}
+    zoo_window = {"mixtral": 4096}     # wider than the prompt: causal
     both = ("float32", "bfloat16")
     # ---- rmsnorm: serve (1, 8, 256); prefill rows 4*512 at each d_model
     for case, shape, dtypes, gen in (
@@ -559,7 +578,10 @@ def lm_cases(np, torch, F, ref, ops):
             + [(f"rows2048-d{d}", (FULL_BATCH * FULL_PROMPT, d), both, rng)
                for d in (576, 1536, 2560, 3072)]
             + [(f"rows4-d{d}", (FULL_BATCH, d), both, later)  # a decode step
-               for d in (576, 2560)]):
+               for d in (576, 2560)]
+            + [(f"rows{r}-d{d}", (r, d), both, zoo)  # mixtral, zamba2
+               for d in (4096, 3584) for r in (FULL_BATCH * FULL_PROMPT,
+                                               FULL_BATCH)]):
         for dt in dtypes:
             x, scale = randn(shape, dt, gen), randn(shape[-1:], dt, gen)
             bound = bound_of(2 * nbytes_of(x) + nbytes_of(scale),
@@ -576,9 +598,12 @@ def lm_cases(np, torch, F, ref, ops):
     attn += [("smollm-s8", FULL_BATCH, 8, heads["smollm"], 0, both),
              ("smollm-s512-window128", FULL_BATCH, FULL_PROMPT,
               heads["smollm"], 128, both)]
-    for case, b, s, (h, kv, d), window, dtypes in attn:
+    attn = [a + (rng,) for a in attn]
+    attn += [(f"{a}-s512", FULL_BATCH, FULL_PROMPT, hd, zoo_window.get(a, 0),
+              both, zoo) for a, hd in zoo_heads.items()]
+    for case, b, s, (h, kv, d), window, dtypes, gen in attn:
         for dt in dtypes:
-            q, k, v = (randn((b, s, n, d), dt) for n in (h, kv, kv))
+            q, k, v = (randn((b, s, n, d), dt, gen) for n in (h, kv, kv))
             pairs = int(ref.visible_mask(s, s, 0, True, window, "cpu").sum())
             bound = bound_of(2 * nbytes_of(q) + nbytes_of(k, v),
                              4 * d * pairs * b * h, MATMUL_OPS[dt])
@@ -586,7 +611,7 @@ def lm_cases(np, torch, F, ref, ops):
 
             def library(q=q, k=k, v=v, window=window, mask=mask):
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                if window:
+                if 0 < window < q.shape[1]:
                     return F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=mask, enable_gqa=True)
                 return F.scaled_dot_product_attention(
@@ -609,10 +634,16 @@ def lm_cases(np, torch, F, ref, ops):
                             pos, hd, both))
         dec.append((f"{a}-b1-cache{long_cache}-pos{long_cache - 1}", 1,
                     long_cache, long_cache - 1, hd, ("bfloat16",)))
-    for case, b, slots, pos, (h, kv, d), dtypes in dec:
+    dec = [c + (rng,) for c in dec]
+    # mixtral's window of 4096 keeps all 544 slots: a plain cache
+    dec += [(f"{a}-cache{long_cache}-pos{long_cache - 1}", FULL_BATCH,
+             long_cache, long_cache - 1, hd, both, zoo)
+            for a, hd in zoo_heads.items()]
+    for case, b, slots, pos, (h, kv, d), dtypes, gen in dec:
         for dt in dtypes:
-            q = randn((b, 1, h, d), dt)
-            k, v = randn((b, slots, kv, d), dt), randn((b, slots, kv, d), dt)
+            q = randn((b, 1, h, d), dt, gen)
+            k = randn((b, slots, kv, d), dt, gen)
+            v = randn((b, slots, kv, d), dt, gen)
             seen = pos + 1
             bound = bound_of(2 * nbytes_of(q)
                              + 2 * b * seen * kv * d * k.element_size(),
@@ -645,7 +676,9 @@ def lm_cases(np, torch, F, ref, ops):
              "normal", later),
             ("mamba2-s2048", (1, 2048, 80, 64, 128, 64), "normal", later),
             ("mamba2-s512-strong", (1, FULL_PROMPT, 80, 64, 128, 64),
-             "strong", later)):
+             "strong", later),
+            ("zamba2-s512-b4", (FULL_BATCH, FULL_PROMPT, 112, 64, 64, 64),
+             "normal", zoo)):
         for dt in (("float32",) if case == "serve" else both):
             x = randn((b, s, h, p), dt, gen)
             if decay == "strong":   # a*dt down to ~-70 a step
@@ -742,35 +775,68 @@ def phase_rmsnorm_layouts(np, torch, ref, rmsnorm_mod):
 
 
 # --------------------------------------------------------------------------
-def phase_lm_parity(np, torch, lm, configs, archs):
+def phase_lm_parity(np, torch, lm, moe, configs, cases):
     """The same reduced() weights on the card and on the CPU: a prefill of
-    8 tokens, then 8 teacher-forced decode steps; every step's logits."""
-    for idx, arch in enumerate(archs):
-        cfg = configs.reduced(configs.get_arch(arch))
+    8 tokens, then 8 teacher-forced decode steps; every step's logits. An
+    int8 KV cache cannot take a prefill's K/V (``lm.seat_cache`` raises):
+    it decodes all 16 tokens from an empty cache. The MoE archs' router
+    also picks the same top-k experts in every layer on one input."""
+    for idx, (arch, overrides) in enumerate(cases):
+        cfg = configs.reduced(configs.get_arch(arch, **overrides))
         cpu = lm.init_params(torch.Generator().manual_seed(idx), cfg)
         card = copy.deepcopy(cpu).to("cuda")
+        rng = np.random.default_rng(idx)
         shape = (1, 16) + ((cfg.num_codebooks,) if cfg.modality == "audio"
                            else ())
-        toks = np.random.default_rng(idx).integers(0, cfg.vocab, shape)
+        toks = rng.integers(0, cfg.vocab, shape)
+        patches = (rng.standard_normal((1, 16, cfg.d_model)).astype(np.float32)
+                   if cfg.modality == "image" else None)
+        prompt = 0 if cfg.kv_cache_dtype == "int8" else 8
 
         def run(params, device):
             t = torch.as_tensor(toks, device=device)
-            _, last, cache = lm.prefill(params, t[:, :8], cfg)
-            cache = lm.seat_cache(lm.init_cache(cfg, 1, 16, device=device),
-                                  cache)
-            steps = [last[:, 0]]
-            for i in range(8, 16):
-                _, logits, cache = lm.decode_step(params, cache,
-                                                  t[:, i:i + 1], i, cfg)
-                steps.append(logits[:, 0])
-            return torch.stack(steps).cpu()
+            pe = (None if patches is None else
+                  torch.as_tensor(patches, device=device))
 
-        got, expect = run(card, "cuda"), run(cpu, "cpu")
+            def part(lo, hi):
+                return None if pe is None else pe[:, lo:hi]
+
+            cache, steps = lm.init_cache(cfg, 1, 16, device=device), []
+            if prompt:
+                _, last, part_cache = lm.prefill(params, t[:, :prompt], cfg,
+                                                 patch_embeds=part(0, prompt))
+                cache = lm.seat_cache(cache, part_cache)
+                steps.append(last[:, 0])
+            for i in range(prompt, 16):
+                _, logits, cache = lm.decode_step(
+                    params, cache, t[:, i:i + 1], i, cfg,
+                    patch_embeds=part(i, i + 1))
+                steps.append(logits[:, 0])
+            return torch.stack(steps).cpu(), cache
+
+        (got, card_cache), (expect, cpu_cache) = (run(card, "cuda"),
+                                                  run(cpu, "cpu"))
         err = float((got - expect).abs().max())
         check(torch.allclose(got, expect, atol=PARITY_TOL, rtol=PARITY_TOL),
               f"LM parity {arch}: card vs CPU logits max abs err {err}")
-        emit({"phase": "lm_parity", "arch": arch, "steps": 9,
-              "max_abs_logit_err": err, "tolerance": PARITY_TOL})
+        facts = {}
+        if cfg.kv_cache_dtype == "int8":
+            facts["int8_entries_differing"] = sum(
+                int((card_cache[k].cpu() != cpu_cache[k]).sum())
+                for k in ("k", "v"))
+        if cfg.is_moe:
+            x = rng.standard_normal((64, cfg.d_model)).astype(np.float32)
+            for i, (blk_card, blk_cpu) in enumerate(zip(card.stack.blocks,
+                                                        cpu.stack.blocks)):
+                ids_card = moe.route(blk_card.moe, torch.as_tensor(
+                    x, device="cuda"), cfg)[2].cpu()
+                ids_cpu = moe.route(blk_cpu.moe, torch.as_tensor(x), cfg)[2]
+                check(torch.equal(ids_card, ids_cpu),
+                      f"LM parity {arch}: layer {i} top-k ids differ")
+            facts["topk_ids_equal"] = True
+        emit({"phase": "lm_parity", "arch": arch,
+              "kv_cache_dtype": cfg.kv_cache_dtype, "steps": len(got),
+              "max_abs_logit_err": err, "tolerance": PARITY_TOL, **facts})
 
 
 def read_counts(counters):
@@ -784,13 +850,18 @@ def zero_counts(counters):
 
 def phase_full_width(np, torch, lm, configs, counters):
     """Published widths: a prefill of FULL_BATCH x FULL_PROMPT tokens, then
-    FULL_DECODE greedy decode steps, bf16 weights drawn from a seed."""
+    FULL_DECODE greedy decode steps, bf16 weights drawn on the card from a
+    seed. Returns each arch's kernel launches."""
+    launches_by = {}
     for arch, overrides in FULL_WIDTH.items():
         published = configs.get_arch(arch)
         cfg = configs.get_arch(arch, **overrides)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        params = lm.init_params(torch.Generator().manual_seed(0), cfg)
-        params = params.to("cuda")
+        params = lm.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         shape = (FULL_BATCH, FULL_PROMPT) + (
             (cfg.num_codebooks,) if cfg.modality == "audio" else ())
@@ -819,16 +890,23 @@ def phase_full_width(np, torch, lm, configs, counters):
         t1, t2, finite = generate(toks, FULL_DECODE)
         launches = read_counts(counters)
         check(finite, f"full width {arch}: non-finite logits")
-        for k in (["rmsnorm", "ssd"] if cfg.family == "ssm"
-                  else ["rmsnorm", "flash_attention", "flash_decode"]):
+        needed = ["rmsnorm"]
+        if cfg.family != "ssm":
+            needed += ["flash_attention", "flash_decode"]
+        if cfg.family in ("ssm", "hybrid"):
+            needed.append("ssd")
+        for k in needed:
             check(launches[k] > 0, f"full width {arch}: {k} never launched")
+        launches_by[arch] = launches
         profile = prefill_profile(torch, lambda: lm.prefill(params, toks, cfg))
         emit({"phase": "full_width", "arch": arch, "dtype": cfg.param_dtype,
               "layers": cfg.num_layers,
               "depth_cut": (f"{published.num_layers} -> {cfg.num_layers} "
                             "layers" if cfg.num_layers != published.num_layers
                             else None),
-              "d_model": cfg.d_model, "vocab": cfg.vocab,
+              "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+              "vocab": cfg.vocab, "params": sum(
+                  t.numel() for t in params.state_dict().values()),
               "batch": FULL_BATCH, "prompt": FULL_PROMPT,
               "decode_steps": FULL_DECODE, "init_s": init_s,
               "prefill_s": t1 - t0, "decode_s": t2 - t1,
@@ -839,6 +917,7 @@ def phase_full_width(np, torch, lm, configs, counters):
               "prefill_profile": profile})
         del params
         torch.cuda.empty_cache()
+    return launches_by
 
 
 def prefill_profile(torch, fn, top=6):
@@ -1187,15 +1266,16 @@ def phase_evaluate(torch, evaluate, p, cfg, ts):
               "seconds": time.perf_counter() - t0, **out})
 
 
-def kernel_entry(name, source, replaces, launches, results):
+def kernel_entry(name, source, replaces, launches, results, full_launches):
     """The ``kernels`` line's entry: execute-serving's case for the times,
-    the largest float32 and bf16 errors over all cases, and the full-width
-    bf16 case ``FULL_CASE[name]`` beside it."""
+    the largest float32 and bf16 errors over all cases, the full-width bf16
+    cases ``FULL_CASE[name]`` beside it, and the launches of each full-width
+    arch's run."""
     mine = {k: r for k, r in results.items() if k[0] == name}
     main = next(r for (n, c, d), r in mine.items() if c == "serve")
-    full = mine[(name, FULL_CASE[name], "bfloat16")]
     keys = ("case", "dtype", "shape", "ms", "call_ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by")
+            "library_ms", "bound_ms", "bound_by", "splits")
+    full = [mine[(name, case, "bfloat16")] for case in FULL_CASE[name]]
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
@@ -1207,7 +1287,9 @@ def kernel_entry(name, source, replaces, launches, results):
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "call_ms": main["call_ms"],
         "shape": main["shape"], "dtype": main["dtype"],
-        "full_width": {k: full[k] for k in keys + ("splits",) if k in full},
+        "full_width": [{k: r[k] for k in keys if k in r} for r in full],
+        "launches_full_width": {arch: n[name]
+                                for arch, n in full_launches.items()},
     }
 
 
@@ -1232,7 +1314,7 @@ def main():
                                      ops, ref, rmsnorm, ssd_scan)
     from repro_torch.kernels import route_score as kernel
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
 
     counters = {"route_score": kernel.route_score, "rmsnorm": rmsnorm.rmsnorm,
                 "flash_attention": flash_attention.flash_attention,
@@ -1244,8 +1326,10 @@ def main():
     t_lm = time.perf_counter()
     lm_results = phase_lm_kernels(np, torch, F, ref, ops)
     phase_rmsnorm_layouts(np, torch, ref, rmsnorm)
-    phase_lm_parity(np, torch, lm, configs, serve_mod.EDGE_ARCHS)
-    phase_full_width(np, torch, lm, configs, counters)
+    phase_lm_parity(np, torch, lm, moe, configs,
+                    [(a, {}) for a in serve_mod.EDGE_ARCHS + PARITY_ARCHS]
+                    + [("smollm_135m", {"kv_cache_dtype": "int8"})])
+    full_launches = phase_full_width(np, torch, lm, configs, counters)
     exec_launches = phase_execute_serve(torch, serve_mod, counters)
     t_actor = time.perf_counter()
     catalog = build_catalog(serve_mod.EDGE_ARCHS)
@@ -1285,7 +1369,7 @@ def main():
         "above_floor_ms": floor["main_path_above_floor_ms"],
     }] + [
         kernel_entry(name, f"{csrc}/{src}.cu", f"{pallas}/{src}.py:{line}",
-                     exec_launches[name], lm_results)
+                     exec_launches[name], lm_results, full_launches)
         for name, src, line in (("rmsnorm", "rmsnorm", 34),
                                 ("flash_attention", "flash_attention", 98),
                                 ("flash_decode", "flash_decode", 83),

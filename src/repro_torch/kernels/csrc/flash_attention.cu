@@ -15,7 +15,8 @@
 // the first key the tile's window can see to the last its causal bound
 // allows, so tiles wholly outside the mask are never read. The (B, S,
 // heads, D) tensors are read through their strides, so the TPU wrapper's
-// transposes have no counterpart.
+// transposes have no counterpart. Head size D is 64, 112 (zamba2-7b) or
+// 128.
 //
 // Bound: at prefill lengths, operations (4*D per visible query-key pair).
 // Two kernels, picked by type:
@@ -29,13 +30,19 @@
 // two stages in shared memory, each stage released by an `mbarrier` the
 // consumers arrive on and filled under one the TMA completes. The maps use
 // the 128-byte swizzle the `wgmma` descriptors expect: a D = 64 bf16 row is
-// one 128-byte atom, D = 128 two 64-column panels. S = Q K^T is
-// m64n64k16 with both operands K-major (contiguous along D), D / 16 steps.
+// one 128-byte atom, D = 128 two 64-column panels. D = 112 keeps the D = 128
+// tiling: its maps carry the true width, so TMA fills columns 112-127 of
+// the second panel with zeros (its out-of-bounds fill), and the padded
+// columns add nothing. S = Q K^T is m64n64k16 with both operands K-major
+// (contiguous along D), D / 16 steps (7 at D = 112: the padding is never
+// multiplied).
 // The softmax runs on the accumulator fragments in registers: each thread
 // holds two rows' columns, the row max and sum are shuffles among the four
 // threads of a row, and the mask is applied only on tiles that cross the
 // causal diagonal, the window edge or Sk. P is rounded to bf16 in registers
-// and is the A operand of P V (m64nDk16), whose B operand V is read
+// and is the A operand of P V (m64nDk16, n 128 at D = 112: its last 16
+// columns are the zeros of V's padding and are not stored), whose B
+// operand V is read
 // MN-major (the descriptor's transpose bit): the accumulator fragment of S
 // is the A fragment of P V, so no shuffle is needed. Rounding P to bf16 is
 // what FlashAttention-3 does; it stays inside the bf16 tolerance against
@@ -49,7 +56,8 @@
 // batch) loops over 32-key tiles; each warp owns 4 query rows, lane j
 // scores key j of the tile for all 4 rows (the K tile has a padded row so
 // the 32 lanes hit 32 banks), the row max and sum are warp shuffles, and
-// lane j owns output columns j, j+32, ... of acc.
+// lane j owns output columns j, j+32, ... of acc (below D: at D = 112 the
+// last column group is half used).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -93,7 +101,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float q_s[kBlockQ][D];
   __shared__ float k_s[kBlockK][D + 1];  // +1: lane j reads row j conflict-free
   __shared__ float v_s[kBlockK][D];
-  constexpr int kCols = D / 32;          // output columns per lane
+  constexpr int kCols = (D + 31) / 32;   // output columns per lane
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kBlockQ;
@@ -165,7 +173,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int r = 0; r < kRows; ++r) {
         const float pj = __shfl_sync(0xffffffffu, s[r], j);
 #pragma unroll
-        for (int i = 0; i < kCols; ++i) acc[r][i] += pj * v_s[j][lane + 32 * i];
+        for (int i = 0; i < kCols; ++i)
+          if (D % 32 == 0 || lane + 32 * i < D)
+            acc[r][i] += pj * v_s[j][lane + 32 * i];
       }
     }
   }
@@ -177,7 +187,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     T* orow = out + b * os_.b + qi * os_.s + hq * os_.h;
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) put(orow + lane + 32 * i, acc[r][i] * inv);
+    for (int i = 0; i < kCols; ++i)
+      if (D % 32 == 0 || lane + 32 * i < D)
+        put(orow + lane + 32 * i, acc[r][i] * inv);
   }
 }
 
@@ -330,8 +342,9 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
+// n = DP, the head size padded to whole 64-column panels
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], const uint32_t* a,
                                          uint64_t b);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t* a,
@@ -352,7 +365,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              __nv_bfloat16* __restrict__ out, Strides os_,
                              int sq, int sk, int rep, int causal, int window,
                              int q_offset, float scale_log2) {
-  constexpr int kPanels = D / 64;
+  constexpr int kPanels = (D + 63) / 64;
+  constexpr int kDP = 64 * kPanels;         // D padded to whole panels
   constexpr int kTile = kPanels * kPanel;   // bytes of one 64-row tile
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // q, full, empty
@@ -408,9 +422,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int r0 = warp * 16 + lane / 4;
   const int qa0 = q0 + r0 + q_offset, qa1 = qa0 + 8;  // absolute positions
   const int c0 = 2 * (lane % 4);
-  float o[D / 2];
+  float o[kDP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kDP / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   mbar_wait(bar_q, 0);
 
@@ -498,7 +512,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)  // 16 keys (rows of V) a step
-      wgmma_pv<D>(o, pa + 4 * kk,
+      wgmma_pv<kDP>(o, pa + 4 * kk,
                   desc(v_s + st * kTile + kk * 2048, kPanel, 1024));
     wgmma_commit();
     wgmma_wait_all();
@@ -557,7 +571,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   if (make_map(&tq, q, b, sq, h, D, st) || make_map(&tk, k, b, sk, kv, D, st + 3) ||
       make_map(&tv, v, b, sk, kv, D, st + 6))
     return -1;
-  constexpr int kSmem = (1 + 2 * kStages) * (D / 64) * kPanel + 1024;
+  constexpr int kSmem = (1 + 2 * kStages) * ((D + 63) / 64) * kPanel + 1024;
   auto kern = flash_attention_wgmma_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -590,7 +604,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 // dtype codes: 0 float32 (the CUDA-core kernel), 2 bfloat16 (the wgmma
 // kernel; its TMA maps need q, k, v's base pointers and their batch, seq
 // and head strides on 16-byte boundaries); q, k, v and out share the type;
-// d is 64 or 128. `strides` holds 12 element strides: (batch, seq, head) of
+// d is 64, 112 or 128. `strides` holds 12 element strides: (batch, seq, head) of
 // q, k, v, out in that order. Returns a cudaError_t code (0 on success), -1
 // for arguments the kernels do not take. Launches on the current device, on
 // `stream`.
@@ -602,10 +616,12 @@ extern "C" int flash_attention_launch(
   const int rep = h / kv;
 #define FA_ARGS q, k, v, out, b, sq, sk, h, rep, strides, causal, window, q_offset, scale, s
   if (dtype == 0 && d == 64) return launch<float, 64>(FA_ARGS);
+  if (dtype == 0 && d == 112) return launch<float, 112>(FA_ARGS);
   if (dtype == 0 && d == 128) return launch<float, 128>(FA_ARGS);
 #undef FA_ARGS
 #define WG_ARGS q, k, v, out, b, sq, sk, h, kv, strides, causal, window, q_offset, scale, s
   if (dtype == 2 && d == 64) return wg::launch<64>(WG_ARGS);
+  if (dtype == 2 && d == 112) return wg::launch<112>(WG_ARGS);
   if (dtype == 2 && d == 128) return wg::launch<128>(WG_ARGS);
 #undef WG_ARGS
   return -1;

@@ -9,7 +9,8 @@
 // j is visible iff j <= pos and, with a window, j > pos - window. The
 // rep = H / KV q heads of one kv group share its keys. Online softmax in
 // float32 with -1e30 for masked scores; out = acc / max(l, 1e-30) in the
-// input's type.
+// input's type. Head size D is 64, 112 (zamba2-7b) or 128: the tilings
+// below step through D in 16-column pieces, and 112 is seven of them.
 //
 // Bound: bytes (each visible K/V row is read once; ~4*D operations per key
 // and head), and at the serving and full-width sizes (0.03-13 MB of K/V)
@@ -39,7 +40,8 @@
 // - float32 as float32 FMAs (tensor-core float32 would be TF32, about three
 //   digits): lane (j, half) scores key j for the heads of its half (16-byte
 //   row reads on 16-byte-padded rows hit distinct banks), lane i owns
-//   output columns i, i+32, ...; the probabilities stay float32.
+//   output columns i, i+32, ... below D (at D = 112 the last group is half
+//   used); the probabilities stay float32.
 // A warp or split whose keys are all masked (a window that starts inside
 // its tile, pos 0) carries m = -1e30, l = 0 and gets weight 0 in the merge:
 // masked probabilities are exactly 0.
@@ -186,7 +188,7 @@ flash_decode_f32_kernel(const float* __restrict__ q,
   using L = Smem<T, D>;
   constexpr int kE = L::kE, kRow = L::kRow;
   constexpr int kQRow = L::kQRow;
-  constexpr int kCols = D / 32;            // output columns per lane
+  constexpr int kCols = (D + 31) / 32;     // output columns per lane
   constexpr int kHalfHeads = (REPB + 1) / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* kv_s = reinterpret_cast<T*>(smem_raw);                 // [2][stage][tile]
@@ -296,7 +298,8 @@ flash_decode_f32_kernel(const float* __restrict__ q,
       const T* vrow = vs + (warp * kWarpKeys + j) * kRow;
       float vc[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) vc[c] = vrow[lane + 32 * c];
+      for (int c = 0; c < kCols; ++c)
+        vc[c] = (D % 32 == 0 || lane + 32 * c < D) ? vrow[lane + 32 * c] : 0.f;
 #pragma unroll
       for (int i = 0; i < kHalfHeads; ++i) {
 #pragma unroll
@@ -323,7 +326,8 @@ flash_decode_f32_kernel(const float* __restrict__ q,
       float* row = mg + (warp * kMaxRep + r) * kStride;
       if (lane == 0) { row[D] = m[r]; row[D + 1] = l[r]; }
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) row[lane + 32 * c] = acc[r][c];
+      for (int c = 0; c < kCols; ++c)
+        if (D % 32 == 0 || lane + 32 * c < D) row[lane + 32 * c] = acc[r][c];
     }
   }
   __syncthreads();
@@ -594,8 +598,8 @@ int launch(int rep, const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype codes: 0 float32, 2 bfloat16 (q, k, v and out share it); d is 64 or
-// 128; H / KV at most 16; the 16-byte K/V copies need the base pointers and
+// dtype codes: 0 float32, 2 bfloat16 (q, k, v and out share it); d is 64,
+// 112 or 128; H / KV at most 16; the 16-byte K/V copies need the base pointers and
 // the batch, seq and head strides of k and v on 16-byte boundaries.
 // `strides` holds 12 element strides: (batch, seq, head) of q, k, v, out in
 // that order. The plan (flash_decode.py::plan_splits): keys [k_first, k_end)
@@ -618,8 +622,10 @@ extern "C" int flash_decode_launch(
 #define FD_ARGS rep, q, k, v, out, part, b, kv, strides, k_first, k_end, \
     chunk, splits, win_lo, scale, s
   if (dtype == 0 && d == 64) return launch<float, 64>(FD_ARGS);
+  if (dtype == 0 && d == 112) return launch<float, 112>(FD_ARGS);
   if (dtype == 0 && d == 128) return launch<float, 128>(FD_ARGS);
   if (dtype == 2 && d == 64) return launch<__nv_bfloat16, 64>(FD_ARGS);
+  if (dtype == 2 && d == 112) return launch<__nv_bfloat16, 112>(FD_ARGS);
   if (dtype == 2 && d == 128) return launch<__nv_bfloat16, 128>(FD_ARGS);
 #undef FD_ARGS
   return -1;

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import cuda_build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 112, 128)
 _MAX_GRID_YZ = 65535
 
 
@@ -92,7 +92,7 @@ def strides_arg(*tensors):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0):
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D); float32 or bf16, D in
-    {64, 128}. Same arguments and result as ``ref.attention_ref``."""
+    {64, 112, 128}. Same arguments and result as ``ref.attention_ref``."""
     q, k, v = check_qkv("flash_attention", q, k, v)
     if q.dtype == torch.bfloat16:
         q, k, v = aligned16(q), aligned16(k), aligned16(v)

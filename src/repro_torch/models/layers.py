@@ -23,12 +23,14 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def param(gen, shape, dtype, scale):
-    """A normal(0, 1) * scale parameter drawn in float32 from ``gen`` and
-    cast to ``dtype``; left uninitialised without a generator (the caller
-    loads it, as ``convert`` does)."""
+    """A normal(0, 1) * scale parameter drawn in float32 from ``gen``, on
+    the generator's device, and cast to ``dtype``; left uninitialised on
+    the CPU without a generator (the caller loads it, as ``convert``
+    does)."""
     if gen is None:
         return nn.Parameter(torch.empty(shape, dtype=dtype))
-    w = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
     return nn.Parameter(w.to(dtype))
 
 
@@ -68,10 +70,6 @@ def apply_rope(x, positions, theta: float):
 
 
 # =============================== Attention ====================================
-INT8_KV = ("the int8 KV cache is not ported yet (ROADMAP.md, Queue 1 "
-           "item 7); use kv_cache_dtype='bfloat16'")
-
-
 class Attention(nn.Module):
     def __init__(self, cfg: ArchConfig, gen=None):
         super().__init__()
@@ -94,7 +92,9 @@ def attention_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
     K/V cache (the last ``window`` positions with a window).
     Decode: S == 1; cache={"k", "v"}: (B, S_max, KV, hd), written in place
     at slot ``pos`` (``pos % S_max``, a ring buffer, with a window) and
-    returned; ``pos`` is a host int.
+    returned; ``pos`` is a host int. An int8 cache (``kv_cache_dtype``)
+    also holds ``k_scale``/``v_scale`` (B, S_max, KV, 1) bf16: the new K/V
+    are quantised into it, and the whole cache is read back dequantised.
     """
     cd = dtype_of(cfg.compute_dtype)
     x = x.to(cd)
@@ -114,30 +114,51 @@ def attention_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
             keep = min(k.shape[1], cfg.window) if cfg.window > 0 else k.shape[1]
             new_cache = {"k": k[:, -keep:], "v": v[:, -keep:]}
     else:
-        if cfg.kv_cache_dtype == "int8":
-            raise NotImplementedError(INT8_KV)
         s_max = cache["k"].shape[1]
         slot = pos % s_max if cfg.window > 0 else pos
         if not 0 <= slot < s_max:  # a slice past the end would drop the write
             raise IndexError(f"decode position {pos} is outside the "
                              f"{s_max}-slot KV cache")
-        cache["k"][:, slot:slot + 1] = k
-        cache["v"][:, slot:slot + 1] = v
+        if cfg.kv_cache_dtype == "int8":
+            for name, new in (("k", k), ("v", v)):
+                values, scale = _quant_kv(new)
+                cache[name][:, slot:slot + 1] = values
+                cache[f"{name}_scale"][:, slot:slot + 1] = scale
+            ck = cache["k"].to(cd) * cache["k_scale"].to(cd)
+            cv = cache["v"].to(cd) * cache["v_scale"].to(cd)
+        else:
+            cache["k"][:, slot:slot + 1] = k
+            cache["v"][:, slot:slot + 1] = v
+            ck, cv = cache["k"].to(cd), cache["v"].to(cd)
         # ring cache: while cold (pos < window) only slots <= pos exist;
         # once warm every slot is in the window by construction
         pos_eff = min(pos, s_max - 1) if cfg.window > 0 else pos
-        out = ops.decode_attention(q, cache["k"].to(cd), cache["v"].to(cd),
-                                   pos_eff)
+        out = ops.decode_attention(q, ck, cv, pos_eff)
         new_cache = cache
     return torch.einsum("bshk,hkd->bsd", out, params.wo.to(cd)), new_cache
 
 
+def _quant_kv(x):
+    """(B, 1, KV, hd) -> int8 values and bf16 per-(token, head) absmax
+    scales; float32 math, rounding half to even as ``jnp.round`` does."""
+    x32 = x.float()
+    scale = (x32.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    values = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return values.to(torch.int8), scale.to(torch.bfloat16)
+
+
 def attention_cache_init(cfg: ArchConfig, batch: int, seq_len: int,
                          dtype=None, device=None):
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(INT8_KV)
     s = min(seq_len, cfg.window) if cfg.window > 0 else seq_len
     shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device),
+                "v_scale": torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device)}
     dt = dtype or dtype_of(cfg.compute_dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}

@@ -21,7 +21,8 @@ from repro_torch.models.layers import const, dtype_of, param
 def _uniform(gen, n, lo, hi):
     if gen is None:
         return torch.empty(n, dtype=torch.float32)
-    return torch.rand(n, generator=gen, dtype=torch.float32) * (hi - lo) + lo
+    return torch.rand(n, generator=gen, dtype=torch.float32,
+                      device=gen.device) * (hi - lo) + lo
 
 
 class Mamba2(nn.Module):

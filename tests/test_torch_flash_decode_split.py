@@ -32,6 +32,8 @@ CASES = [  # B, S, H, KV, D, pos, window, splits asked for, dtype
     (2, 300, 8, 8, 64, 299, 0, 5, "bfloat16"),
     (1, 544, 24, 2, 128, 543, 0, 9, "float32"),    # rep 12, D 128
     (1, 544, 24, 2, 128, 543, 0, 9, "bfloat16"),
+    (4, 544, 32, 32, 112, 543, 0, 2, "float32"),   # zamba2-7b: D 112, rep 1
+    (1, 544, 32, 32, 112, 300, 0, 5, "bfloat16"),
 ]
 
 

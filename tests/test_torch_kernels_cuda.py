@@ -376,6 +376,10 @@ def test_rmsnorm_kernel_edge_path_on_a_misaligned_base(dtype):
     (1, 256, 256, 24, 2, 128, 0, 0),    # rep 12 over whole tiles
     (2, 300, 300, 9, 3, 64, 128, 0),    # window 128 crossing tile edges
     (4, 512, 512, 9, 3, 64, 0, 0),      # smollm-135m's prefill, full width
+    (4, 512, 512, 32, 32, 112, 0, 0),   # zamba2-7b's prefill: D 112
+    (2, 130, 130, 8, 2, 112, 0, 0),     # D 112, rep 4, ragged
+    (1, 100, 100, 4, 4, 112, 16, 0),    # D 112, window inside a tile
+    (1, 70, 198, 8, 8, 112, 64, 128),   # D 112, window, q_offset
 ])
 def test_flash_attention_kernel_matches_plain_version(b, sq, sk, h, kv, d,
                                                       window, q_offset, dtype):
@@ -390,6 +394,25 @@ def test_flash_attention_kernel_matches_plain_version(b, sq, sk, h, kv, d,
     assert flash_attention.flash_attention.launches == before + 1
     _check(got, ref.attention_ref(q, k, v, window=window, q_offset=q_offset),
            TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_head_112_on_a_misaligned_base(dtype):
+    """q, k, v contiguous views one element past a 16-byte boundary, at
+    zamba2-7b's head size: the bf16 path's TMA maps get aligned copies."""
+    _needs_card()
+    rng = np.random.default_rng(12)
+    b, s, h, d = 2, 100, 4, 112
+    n = b * s * h * d
+    buf = _randn(rng, (3 * n + 1,), dtype)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(b, s, h, d)
+               for i in range(3))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, window=48)
+    assert flash_attention.flash_attention.launches == before + 1
+    _check(got, ref.attention_ref(q, k, v, window=48), TOL[dtype])
 
 
 DECODE_CASES = [  # B, S, H, KV, D, pos, window, cache layout
@@ -407,6 +430,11 @@ DECODE_CASES = [  # B, S, H, KV, D, pos, window, cache layout
     (1, 544, 9, 3, 64, 0, 0, "dense"),          # pos 0 at batch 1
     (2, 544, 6, 2, 64, 400, 0, "slice"),        # the cache a strided slice
     (1, 544, 9, 3, 64, 543, 0, "offset"),       # contiguous, base off 16 bytes
+    (4, 544, 32, 32, 112, 543, 0, "dense"),     # zamba2-7b's decode: D 112
+    (1, 544, 32, 32, 112, 543, 0, "dense"),     # D 112, several splits
+    (1, 16, 32, 32, 112, 8, 0, "dense"),        # D 112, one split
+    (2, 700, 8, 2, 112, 650, 100, "dense"),     # D 112, rep 4, window
+    (1, 544, 32, 32, 112, 543, 0, "offset"),    # D 112, base off 16 bytes
 ]
 
 

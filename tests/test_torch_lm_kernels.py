@@ -90,6 +90,8 @@ FLASH_CASES = [  # B, S, H, KV, D, window, dtype (the JAX flash tests')
     (2, 256, 4, 4, 64, 128, "float32"),
     (1, 256, 2, 2, 128, 0, "bfloat16"),
     (1, 384, 6, 3, 64, 256, "float32"),
+    (1, 256, 4, 4, 112, 0, "float32"),   # zamba2-7b's head size
+    (2, 256, 4, 2, 112, 128, "bfloat16"),
 ]
 
 
@@ -116,6 +118,8 @@ def test_attention_ref_matches_jax_flash_kernel(b, s, h, kv, d, window, dtype):
     (1, 100, 100, 4, 4, 128, 16, 0, "float32"),  # ragged S + window
     (1, 128, 256, 4, 4, 64, 0, 128, "float32"),  # the suffix via q_offset
     (1, 21, 21, 12, 1, 128, 0, 0, "bfloat16"),  # rep 12, ragged, bf16
+    (2, 70, 70, 4, 4, 112, 0, 0, "float32"),    # D 112, ragged
+    (1, 70, 198, 4, 4, 112, 32, 128, "bfloat16"),  # D 112, window, offset
 ])
 def test_attention_ref_ragged_matches_jax_oracle(b, sq, sk, h, kv, d, window,
                                                  q_offset, dtype):
@@ -132,6 +136,8 @@ DECODE_CASES = [  # B, S, H, KV, D, pos, window, dtype (the JAX decode tests')
     (1, 2048, 4, 2, 128, 2047, 512, "float32"),
     (1, 512, 4, 4, 64, 0, 0, "float32"),
     (2, 512, 8, 4, 64, 511, 0, "bfloat16"),
+    (2, 512, 4, 4, 112, 511, 0, "float32"),   # zamba2-7b's head size
+    (1, 512, 8, 4, 112, 300, 128, "bfloat16"),
 ]
 
 
