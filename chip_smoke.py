@@ -82,14 +82,47 @@ Phases, one JSON line each (after the card's name and power limit):
 12. ``evaluate``: ``evaluate_policy`` for the trained actor, random and
     greedy over 32 episodes: latency, energy, completion and switch
     latency, printed, not held;
-13. a ``kernels`` line with each kernel's launches on its main path (the
+13. ``train_kernel_grads``: rmsnorm, flash attention and the SSD scan
+    inside autograd (``ops`` sends grad-recording CUDA tensors through
+    each kernel's ``torch.autograd.Function``) at training shapes
+    (``train_grad_cases``: the shapes a ``train_full`` step hands each
+    kernel, its microbatch being batch / grad_accum, and zamba2-7b's head
+    size 112), float32 and bf16: the output is the kernel's own, one
+    launch, and within ``LM_TOL`` / ``SSD_TOL`` of the plain version;
+    every input gradient present, finite and within the same tolerance
+    of autograd through the plain version (the Function's backward is
+    that VJP, so this holds its wiring: saved inputs, order and types;
+    the CPU tests hold that VJP against ``jax.vjp`` of the Pallas
+    kernels); the forward kernel, the backward and the plain backward
+    timed;
+14. ``train_parity``: the ten archs at ``reduced()``, the same weights
+    and pipeline batches, 3 train steps on the card and on the CPU port:
+    losses, grad norms and the parameters after the last step within
+    ``PARITY_TOL``; each training kernel launched on the card;
+15. ``train_reduced``: ``launch.train`` for 200 steps of reduced
+    smollm-135m (batch 8 x 256) with checkpoints every 100: the loss
+    drops by more than 0.3, and a run resumed from ``step_100`` repeats
+    the last 100 steps within ``RESUME_TOL``;
+16. ``train_full``: smollm-135m at its published config and mamba2-2.7b
+    at full width with 8 of 64 layers, bf16 with the configs' remat and
+    grad_accum (``TRAIN_FULL``): 3 warm-up and 20 timed steps; tokens/s,
+    the median step, peak memory, each kernel's launches in one step
+    (counts set to 0 just before and read just after) and the shapes
+    they were handed (each held in ``train_kernel_grads``: checked),
+    finite losses and grad norms, one step under the profiler (busy
+    share, heaviest kernels) and one more with each of its parts
+    (forward, backward, optimizer) profiled through the step's ``part``
+    hook. Recorded, not held;
+17. a ``kernels`` line with each kernel's launches on its main path (the
     fleet-scale speculative serve for ``route_score``, and its launches
     on the actor path beside them; execute-serving for the others, and
     their launches on each full-width arch's run beside them), its
     error against the plain version, its time, the plain version's time,
     the library call's time and its bound, and beside them the same
-    numbers at each full-width arch's bf16 case (``FULL_CASE``);
-14. the last line, ``{"ok": true, "device": {...}}``.
+    numbers at each full-width arch's bf16 case (``FULL_CASE``), the
+    training cases' forward and backward times and each kernel's
+    launches in one ``train_full`` step;
+18. the last line, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32: TF32 is off for cuBLAS and
 cuDNN. Any failed check exits non-zero; without a card, or outside a
@@ -146,6 +179,15 @@ FULL_CASE = {"rmsnorm": ("rows2048-d576", "rows2048-d4096", "rows2048-d3584"),
                               "zamba2-cache544-pos543"),
              "ssd": ("mamba2-s512", "zamba2-s512-b4")}
 TRAIN_STEPS = 3000                  # AlgoConfig().total_steps 12000, cut
+TRAIN_SSD_CHUNK = 256               # mamba2-2.7b's ssm_chunk (the backward's)
+TRAIN_PARITY = dict(batch=4, seq=72, steps=3)  # past reduced()'s window 64
+TRAIN_REDUCED = dict(arch="smollm_135m", steps=200, batch=8, seq=256,
+                     ckpt_every=100, log_every=50)
+RESUME_TOL = {"loss_rel": 1e-4, "param_abs": 1e-3}
+TRAIN_FULL = {"smollm_135m": ({}, 8, 512),   # (overrides, batch, seq)
+              "mamba2_2p7b": ({"num_layers": 8}, 4, 512)}
+TRAIN_WARMUP, TRAIN_TIMED = 3, 20
+TRAIN_HEAD112 = ("zamba2_7b", 4, 512)  # head size 112; no train_full run
 ACTOR_FLEET = dict(n_cells=16, servers_per_cell=3, drain_rate=20000.0)
 ACTOR_STREAM = dict(scenario="hotspot-cell", num_requests=N_REQUESTS)
 SIM_WINDOW, EVAL_EPISODES = 256, 32
@@ -890,15 +932,12 @@ def phase_full_width(np, torch, lm, configs, counters):
         t1, t2, finite = generate(toks, FULL_DECODE)
         launches = read_counts(counters)
         check(finite, f"full width {arch}: non-finite logits")
-        needed = ["rmsnorm"]
-        if cfg.family != "ssm":
-            needed += ["flash_attention", "flash_decode"]
-        if cfg.family in ("ssm", "hybrid"):
-            needed.append("ssd")
+        needed = needed_kernels(cfg) + (
+            ["flash_decode"] if cfg.family != "ssm" else [])
         for k in needed:
             check(launches[k] > 0, f"full width {arch}: {k} never launched")
         launches_by[arch] = launches
-        profile = prefill_profile(torch, lambda: lm.prefill(params, toks, cfg))
+        profile = profile_once(torch, lambda: lm.prefill(params, toks, cfg))
         emit({"phase": "full_width", "arch": arch, "dtype": cfg.param_dtype,
               "layers": cfg.num_layers,
               "depth_cut": (f"{published.num_layers} -> {cfg.num_layers} "
@@ -920,12 +959,12 @@ def phase_full_width(np, torch, lm, configs, counters):
     return launches_by
 
 
-def prefill_profile(torch, fn, top=6):
-    """One more prefill under torch.profiler (after the timed ones): its
-    host-clock time, the device time its kernels took (their sum: one
-    stream runs them one after another) and the kernels that took most.
-    Busy over wall is the device's busy share; the rest is the card
-    waiting for the host."""
+def profile_once(torch, fn, top=6):
+    """One more call of ``fn`` (a prefill, a train step) under
+    torch.profiler, after the timed ones: its host-clock time, the device
+    time its kernels took (their sum: one stream runs them one after
+    another) and the kernels that took most. Busy over wall is the
+    device's busy share; the rest is the card waiting for the host."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1266,11 +1305,413 @@ def phase_evaluate(torch, evaluate, p, cfg, ts):
               "seconds": time.perf_counter() - t0, **out})
 
 
-def kernel_entry(name, source, replaces, launches, results, full_launches):
+# --------------------------------------------------------------------------
+def train_grad_inputs(np, torch, F, ref, ops, kernel, shape, dtype, gen):
+    """(differentiable inputs, the call through ``ops`` (the autograd
+    Function on grad-recording CUDA tensors), the kernel's own call, the
+    plain version the backward differentiates, the plain version the
+    forward is held against, tolerance) at a training shape. For the SSD
+    the latter is ``ref.ssd_tiled_ref``, the kernel's own order: at
+    mamba2's decay rates the float32 chunk-256 form is itself off the
+    recurrence by more than the tolerance (its decay sums run over 256
+    positions; ``lm_cases`` says the same of its long cases), and the
+    phase records the kernel's gap to it beside."""
+    dt = getattr(torch, dtype)
+
+    def randn(*s, scale=1.0, to=dt):
+        return torch.as_tensor(gen.standard_normal(s).astype(np.float32)
+                               * scale, device="cuda").to(to)
+
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+
+    if kernel == "rmsnorm":
+        return ((randn(*shape), 1.0 + randn(shape[-1], scale=0.1)),
+                lambda x, s: ops.rmsnorm(x, s), rmsnorm.rmsnorm,
+                ref.rmsnorm_ref, ref.rmsnorm_ref, LM_TOL[dtype])
+    if kernel == "flash_attention":
+        b, s, h, kv, d = shape
+        return ((randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv, d)),
+                ops.attention, flash_attention.flash_attention,
+                ref.attention_ref, ref.attention_ref, LM_TOL[dtype])
+    b, s, h, p, n = shape
+    dtv = F.softplus(randn(b, s, h, to=torch.float32))
+    a_log = torch.log(torch.as_tensor(gen.uniform(1.0, 16.0, h),
+                                      dtype=torch.float32, device="cuda"))
+    args = (randn(b, s, h, p), dtv, a_log, randn(b, s, n), randn(b, s, n),
+            torch.ones(h, device="cuda"))
+    return (args, lambda *a: ops.ssd(*a, chunk=TRAIN_SSD_CHUNK), ssd_scan.ssd,
+            lambda *a: ref.ssd_chunked_ref(*a, chunk=TRAIN_SSD_CHUNK)[0],
+            lambda *a: ref.ssd_tiled_ref(*a)[0], SSD_TOL[dtype])
+
+
+def train_shapes(cfg, batch, seq):
+    """{kernel: shape} that a train step of ``cfg`` at (batch, seq) hands
+    each training kernel: rmsnorm (B, S, d), attention (B, S, heads,
+    kv heads, head size), ssd (B, S, heads, head size, state)."""
+    out = {"rmsnorm": (batch, seq, cfg.d_model)}
+    if cfg.family != "ssm":
+        out["flash_attention"] = (batch, seq, cfg.num_heads,
+                                  cfg.num_kv_heads, cfg.head_dim)
+    if cfg.family in ("ssm", "hybrid"):
+        out["ssd"] = (batch, seq, cfg.ssm_heads, cfg.ssm_head_dim,
+                      cfg.ssm_state)
+    return out
+
+
+def train_grad_cases(configs):
+    """{kernel: {case: shape}}: every shape one ``train_full`` step hands
+    a kernel (the microbatch is batch / grad_accum), and zamba2-7b's head
+    size 112 (``TRAIN_HEAD112``), which no ``train_full`` run reaches."""
+    cases = {"rmsnorm": {}, "flash_attention": {}, "ssd": {}}
+    runs = [(arch, configs.get_arch(arch, **overrides), batch, seq)
+            for arch, (overrides, batch, seq) in TRAIN_FULL.items()]
+    head_arch, head_batch, head_seq = TRAIN_HEAD112
+    head_cfg = configs.get_arch(head_arch)
+    for arch, cfg, batch, seq in runs:
+        mb = batch // cfg.grad_accum
+        for kernel, shape in train_shapes(cfg, mb, seq).items():
+            cases[kernel][f"{arch.split('_')[0]}-{mb}x{seq}"] = shape
+    cases["flash_attention"][
+        f"{head_arch.split('_')[0]}-{head_batch}x{head_seq}"] = train_shapes(
+            head_cfg, head_batch, head_seq)["flash_attention"]
+    return cases
+
+
+@contextlib.contextmanager
+def shapes_handed(functions):
+    """Records (kernel, shape in ``train_shapes``' terms, type) of every
+    call of each autograd Function in ``functions`` ({kernel: Function})
+    while the block runs."""
+    seen = set()
+
+    def shape_of(kernel, args):
+        if kernel == "flash_attention":
+            q, k = args[0], args[1]
+            return tuple(q.shape[:3]) + (k.shape[2], q.shape[3])
+        if kernel == "ssd":
+            return tuple(args[0].shape) + (args[3].shape[-1],)
+        return tuple(args[0].shape)
+
+    own = {kernel: fn.__dict__.get("apply") for kernel, fn in
+           functions.items()}           # None: inherited from Function
+    for kernel, fn in functions.items():
+        def apply(*args, kernel=kernel, orig=fn.apply):
+            seen.add((kernel, shape_of(kernel, args), str(args[0].dtype)))
+            return orig(*args)
+        fn.apply = apply
+    try:
+        yield seen
+    finally:
+        for kernel, fn in functions.items():
+            if own[kernel] is None:
+                del fn.apply
+            else:
+                fn.apply = own[kernel]
+
+
+def phase_train_kernel_grads(np, torch, F, ref, ops, counters, cases):
+    """Each training kernel inside autograd at training shapes
+    (``cases``), float32 and bf16: the output is the kernel's own (one
+    launch) and within the kernel tolerance of the plain version (for the
+    SSD its tiled form, ``train_grad_inputs`` says why); every
+    input gradient is present, finite and within that tolerance of
+    autograd through the plain version. The Function's backward is that
+    VJP recomputed, so this comparison reads 0 when the Function saves
+    the inputs unchanged and hands each gradient to its input; with the
+    forward held here and that VJP held against ``jax.vjp`` of the Pallas
+    kernels by the CPU tests, the backward is the VJP of the kernel's
+    function within the kernel tolerance. Times the forward kernel,
+    the Function's backward (the plain version recomputed and
+    differentiated) and autograd's backward through the plain forward.
+    Returns {(kernel, case, dtype): line}."""
+    gen = np.random.default_rng(21)
+    results = {}
+    for kernel, by_case in cases.items():
+        counter = counters["ssd" if kernel == "ssd" else kernel]
+        for case, shape in by_case.items():
+            for dtype in ("float32", "bfloat16"):
+                where = f"train grads {kernel} {case}/{dtype}"
+                args, call, direct, plain, plain_fwd, tol = train_grad_inputs(
+                    np, torch, F, ref, ops, kernel, shape, dtype, gen)
+                with torch.no_grad():
+                    own = direct(*args)
+                own = own[0] if isinstance(own, tuple) else own
+                args = [a.detach().requires_grad_() for a in args]
+                before = counter.launches
+                out = call(*args)
+                out = out[0] if isinstance(out, tuple) else out
+                check(counter.launches == before + 1, f"{where}: not one "
+                      "launch")
+                check("Function" in type(out.grad_fn).__name__,
+                      f"{where}: no Function")
+                check(torch.equal(out, own), f"{where}: output is not the "
+                      "kernel's")
+                with torch.no_grad():
+                    a, b = out.detach().float(), plain_fwd(*args).float()
+                fwd_err = float((a - b).abs().max())
+                check(torch.allclose(a, b, rtol=tol, atol=tol),
+                      f"{where}: output max abs err {fwd_err} beyond {tol} "
+                      "of the plain version")
+                plain_out = plain(*args)
+                bwd_plain_err = float((a - plain_out.detach().float())
+                                      .abs().max())
+                del a, b
+                cot = torch.as_tensor(gen.standard_normal(tuple(out.shape))
+                                      .astype(np.float32),
+                                      device="cuda").to(out.dtype)
+                got = torch.autograd.grad(out, args, cot, retain_graph=True)
+                expect = torch.autograd.grad(plain_out, args, cot,
+                                             retain_graph=True)
+                errs = []
+                for i, (g, e) in enumerate(zip(got, expect)):
+                    check(g is not None and g.dtype == args[i].dtype
+                          and bool(torch.isfinite(g).all()),
+                          f"{where}: input {i} gradient missing or not "
+                          "finite")
+                    scale = 1.0 + float(e.float().abs().max())
+                    err = float((g.float() - e.float()).abs().max())
+                    check(torch.allclose(g.float(), e.float(), rtol=tol,
+                                         atol=tol * scale),
+                          f"{where}: input {i} max abs err {err} beyond "
+                          f"{tol} x {scale}")
+                    errs.append(err)
+                with torch.no_grad():
+                    fwd_ms = time_ms(torch, lambda: direct(*args), 10)
+                res = {"phase": "train_kernel_grads", "kernel": kernel,
+                       "case": case, "dtype": dtype, "shape": list(shape),
+                       "output_is_kernels": True, "tolerance": tol,
+                       "max_abs_err_forward": fwd_err,
+                       "max_abs_err_forward_vs_backward_plain": bwd_plain_err,
+                       "max_abs_err_by_input": errs,
+                       "forward_ms": fwd_ms,
+                       "backward_ms": time_ms(torch, lambda: torch.autograd.grad(
+                           out, args, cot, retain_graph=True), 10),
+                       "plain_backward_ms": time_ms(
+                           torch, lambda: torch.autograd.grad(
+                               plain_out, args, cot, retain_graph=True), 10)}
+                emit(res)
+                results[(kernel, case, dtype)] = res
+                del out, plain_out, got, expect
+    return results
+
+
+def needed_kernels(cfg):
+    """The kernels a forward pass of ``cfg``'s stack launches."""
+    need = ["rmsnorm"]
+    if cfg.family != "ssm":
+        need.append("flash_attention")
+    if cfg.family in ("ssm", "hybrid"):
+        need.append("ssd")
+    return need
+
+
+def phase_train_parity(np, torch, configs, lm, train_mod, pipeline, counters):
+    """The ten archs at reduced(): the same weights (drawn on the CPU) and
+    the same pipeline batches, TRAIN_PARITY["steps"] train steps on the
+    card and on the CPU port; loss and grad norm of every step and the
+    parameters after the last within PARITY_TOL."""
+    for arch in configs.list_archs():
+        cfg = configs.reduced(configs.get_arch(arch))
+        dc = pipeline.DataConfig(seq_len=TRAIN_PARITY["seq"],
+                                 global_batch=TRAIN_PARITY["batch"],
+                                 vocab=cfg.vocab)
+        cpu = lm.init_params(torch.Generator().manual_seed(0), cfg)
+        card = copy.deepcopy(cpu).to("cuda")
+        runs = {}
+        for dev, params in (("cuda", card), ("cpu", cpu)):
+            params.requires_grad_(True)
+            opt_init, step_fn = train_mod.make_train_step(cfg)
+            opt = opt_init(params)
+            zero_counts(counters)
+            metrics = []
+            for s in range(TRAIN_PARITY["steps"]):
+                params, opt, m = step_fn(params, opt, pipeline.synthetic_batch(
+                    cfg, dc, s, device=dev))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[dev] = (metrics, read_counts(counters))
+        for k in needed_kernels(cfg):
+            check(runs["cuda"][1][k] > 0, f"train_parity {arch}: {k} never "
+                  "launched")
+        loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in
+                       zip(runs["cuda"][0], runs["cpu"][0]))
+        gnorm_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in
+                        zip(runs["cuda"][0], runs["cpu"][0]))
+        cpu_named = dict(cpu.named_parameters())
+        param_diff = max(float((p.detach().cpu() - cpu_named[k].detach())
+                               .abs().max())
+                         for k, p in card.named_parameters())
+        emit({"phase": "train_parity", "arch": arch,
+              "steps": TRAIN_PARITY["steps"], "batch": TRAIN_PARITY["batch"],
+              "seq": TRAIN_PARITY["seq"],
+              "loss_card": [m[0] for m in runs["cuda"][0]],
+              "loss_cpu": [m[0] for m in runs["cpu"][0]],
+              "grad_norm_card": [m[1] for m in runs["cuda"][0]],
+              "max_loss_rel": loss_rel, "max_grad_norm_rel": gnorm_rel,
+              "max_param_abs_diff": param_diff, "tolerance": PARITY_TOL,
+              "launches_card": runs["cuda"][1]})
+        check(loss_rel <= PARITY_TOL and gnorm_rel <= PARITY_TOL
+              and param_diff <= PARITY_TOL,
+              f"train_parity {arch}: loss {loss_rel}, grad norm {gnorm_rel}, "
+              f"params {param_diff} beyond {PARITY_TOL}")
+
+
+def phase_train_reduced(torch, launch_train, lm):
+    """``launch.train`` on the card into a temporary directory with
+    checkpoints every TRAIN_REDUCED["ckpt_every"] steps: the loss drops by
+    more than the example's 0.3; a second run resumed from the first
+    checkpoint repeats the rest within RESUME_TOL."""
+    run = {k: v for k, v in TRAIN_REDUCED.items() if k != "arch"}
+    arch, every = TRAIN_REDUCED["arch"], TRAIN_REDUCED["ckpt_every"]
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        t0 = time.perf_counter()
+        params, losses = launch_train.train(arch, ckpt_dir=d1, **run)
+        wall = time.perf_counter() - t0
+        shutil.copytree(Path(d1) / f"step_{every}", Path(d2) / f"step_{every}")
+        t1 = time.perf_counter()
+        resumed, rest = launch_train.train(arch, ckpt_dir=d2, **run)
+        resume_wall = time.perf_counter() - t1
+    drop = losses[0] - losses[-1]
+    check(all(math.isfinite(v) for v in losses + rest),
+          "train_reduced: non-finite loss")
+    check(drop > 0.3, f"train_reduced: loss dropped {drop}, not > 0.3")
+    check(len(rest) == len(losses) - every, "train_reduced: resumed at the "
+          "wrong step")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rest, losses[every:]))
+    named = dict(params.named_parameters())
+    param_diff = max(float((p.detach() - named[k].detach()).abs().max())
+                     for k, p in resumed.named_parameters())
+    bitwise = rest == losses[every:] and all(
+        torch.equal(p, named[k]) for k, p in resumed.named_parameters())
+    emit({"phase": "train_reduced", "arch": arch, **run,
+          "params": lm.param_count(params), "wall_s": wall,
+          "steps_per_s": run["steps"] / wall,
+          "tok_s": run["steps"] * run["batch"] * run["seq"] / wall,
+          "loss_first": losses[0], "loss_last": losses[-1], "drop": drop,
+          "resumed_from": every, "resume_wall_s": resume_wall,
+          "resume_max_loss_rel": loss_rel,
+          "resume_max_param_abs_diff": param_diff, "resume_bitwise": bitwise,
+          "resume_tolerance": RESUME_TOL})
+    check(loss_rel <= RESUME_TOL["loss_rel"]
+          and param_diff <= RESUME_TOL["param_abs"],
+          f"train_reduced: resumed run off by loss {loss_rel}, params "
+          f"{param_diff} (tolerance {RESUME_TOL})")
+
+
+def step_in_parts(torch, step_fn, params, opt_state, batch):
+    """One train step (``step_fn``, the step the timed runs take) with
+    each of its parts profiled on its own through the step's ``part``
+    hook: the forward (``lm.loss_fn``), the backward (the plain versions'
+    VJPs and, under remat, the blocks' recompute with its kernel
+    launches) and the optimizer (clip, AdamW, the in-place update). The
+    parts of each microbatch are summed. Returns (params, opt_state,
+    {part: {wall_ms, device_busy_ms, top}})."""
+    profs = {}
+
+    def part(name, fn):
+        box = {}
+        profs.setdefault(name, []).append(
+            profile_once(torch, lambda: box.update(out=fn())))
+        return box["out"]
+
+    params, opt_state, _ = step_fn(params, opt_state, batch, part=part)
+    return params, opt_state, {
+        name: {"wall_ms": sum(p["wall_ms"] for p in ps),
+               "device_busy_ms": sum(p["device_busy_ms"] for p in ps),
+               "top": ps[0]["top"][:3]}
+        for name, ps in profs.items()}
+
+
+def phase_train_full(np, torch, configs, lm, train_mod, pipeline, counters,
+                     functions, cases):
+    """Published widths (depth cut where TRAIN_FULL says), bf16, the
+    config's remat and grad_accum: TRAIN_WARMUP steps, one step with the
+    kernel counts set to 0 just before and read just after, TRAIN_TIMED
+    timed steps (each ending in a synchronise), then one step under the
+    profiler and one with its three parts profiled. Recorded, not held,
+    apart from finite losses, each kernel launched and each shape the
+    step hands a kernel (through ``functions``, {kernel: autograd
+    Function}) being one of ``cases``, the shapes ``train_kernel_grads``
+    held. Returns each arch's launches a step."""
+    held = {(kernel, tuple(shape)) for kernel, by_case in cases.items()
+            for shape in by_case.values()}
+    launches_by = {}
+    for arch, (overrides, batch, seq) in TRAIN_FULL.items():
+        published = configs.get_arch(arch)
+        cfg = configs.get_arch(arch, **overrides)
+        params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg).requires_grad_(True)
+        opt_init, step_fn = train_mod.make_train_step(cfg)
+        opt = opt_init(params)
+        dc = pipeline.DataConfig(seq_len=seq, global_batch=batch,
+                                 vocab=cfg.vocab)
+        data = lambda s: pipeline.synthetic_batch(cfg, dc, s, device="cuda")
+        step = 0
+        losses, gnorms = [], []
+
+        def one():
+            nonlocal params, opt, step
+            params, opt, m = step_fn(params, opt, data(step))
+            step += 1
+            losses.append(float(m["loss"]))   # waits for the step
+            gnorms.append(float(m["grad_norm"]))
+
+        for _ in range(TRAIN_WARMUP):
+            one()
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        with shapes_handed(functions) as seen:
+            one()
+        launches = read_counts(counters)
+        for k in needed_kernels(cfg):
+            check(launches[k] > 0, f"train_full {arch}: {k} never launched")
+        check({(k, shape) for k, shape, _ in seen} <= held,
+              f"train_full {arch}: kernel shapes {sorted(seen)} not all held "
+              "in train_kernel_grads")
+        launches_by[arch] = launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(TRAIN_TIMED):
+            t0 = time.perf_counter()
+            one()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(v) for v in losses + gnorms),
+              f"train_full {arch}: non-finite loss or grad norm")
+        whole = profile_once(torch, one)
+        params, opt, split = step_in_parts(torch, step_fn, params, opt,
+                                           data(step))
+        emit({"phase": "train_full", "arch": arch, "dtype": cfg.param_dtype,
+              "remat": cfg.remat, "grad_accum": cfg.grad_accum,
+              "moment_dtype": cfg.moment_dtype, "layers": cfg.num_layers,
+              "depth_cut": (f"{published.num_layers} -> {cfg.num_layers} "
+                            "layers" if cfg.num_layers != published.num_layers
+                            else None),
+              "d_model": cfg.d_model, "vocab": cfg.vocab,
+              "params": lm.param_count(params), "batch": batch, "seq": seq,
+              "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_TIMED,
+              "train_tok_s": TRAIN_TIMED * batch * seq / sum(times),
+              "median_step_ms": 1e3 * statistics.median(times),
+              "step_ms": [1e3 * t for t in times],
+              "peak_mem_gb": peak, "launches_per_step": launches,
+              "kernel_shapes": sorted([k, list(shape), dt]
+                                      for k, shape, dt in seen),
+              "loss_first": losses[0], "loss_last": losses[-1],
+              "grad_norm_last": gnorms[-1], "finite": True,
+              "step_profile": whole, "step_split": split})
+        del params, opt
+        torch.cuda.empty_cache()
+    return launches_by
+
+
+def kernel_entry(name, source, replaces, launches, results, full_launches,
+                 grads, train_launches):
     """The ``kernels`` line's entry: execute-serving's case for the times,
     the largest float32 and bf16 errors over all cases, the full-width bf16
-    cases ``FULL_CASE[name]`` beside it, and the launches of each full-width
-    arch's run."""
+    cases ``FULL_CASE[name]`` beside it, the launches of each full-width
+    arch's run, the training cases (forward kernel and backward a call)
+    and the launches of one ``train_full`` step of each arch."""
     mine = {k: r for k, r in results.items() if k[0] == name}
     main = next(r for (n, c, d), r in mine.items() if c == "serve")
     keys = ("case", "dtype", "shape", "ms", "call_ms", "plain_ms",
@@ -1290,6 +1731,11 @@ def kernel_entry(name, source, replaces, launches, results, full_launches):
         "full_width": [{k: r[k] for k in keys if k in r} for r in full],
         "launches_full_width": {arch: n[name]
                                 for arch, n in full_launches.items()},
+        "train": [{k: r[k] for k in ("case", "dtype", "shape", "forward_ms",
+                                     "backward_ms", "plain_backward_ms")}
+                  for (n, _, _), r in grads.items() if n == name],
+        "launches_train_full": {arch: n[name]
+                                for arch, n in train_launches.items()},
     }
 
 
@@ -1313,8 +1759,11 @@ def main():
     from repro_torch.kernels import (cuda_build, flash_attention, flash_decode,
                                      ops, ref, rmsnorm, ssd_scan)
     from repro_torch.kernels import route_score as kernel
+    from repro_torch.data import pipeline
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import lm, moe
+    from repro_torch.models import train as train_mod
 
     counters = {"route_score": kernel.route_score, "rmsnorm": rmsnorm.rmsnorm,
                 "flash_attention": flash_attention.flash_attention,
@@ -1343,9 +1792,21 @@ def main():
         phase_simulate(np, torch, batch_router, policies, serve_mod,
                        workloads, catalog, ckpt)
     phase_evaluate(torch, evaluate, p, cfg, ts)
+    t_train = time.perf_counter()
+    grad_cases = train_grad_cases(configs)
+    grads = phase_train_kernel_grads(np, torch, F, ref, ops, counters,
+                                     grad_cases)
+    phase_train_parity(np, torch, configs, lm, train_mod, pipeline, counters)
+    phase_train_reduced(torch, launch_train, lm)
+    train_launches = phase_train_full(
+        np, torch, configs, lm, train_mod, pipeline, counters,
+        {"rmsnorm": rmsnorm.RMSNormFunction,
+         "flash_attention": flash_attention.FlashAttentionFunction,
+         "ssd": ssd_scan.SSDFunction}, grad_cases)
     t_end = time.perf_counter()
     emit({"phase": "timing", "total_s": t_end - t_start,
-          "lm_phases_s": t_actor - t_lm, "actor_phases_s": t_end - t_actor})
+          "lm_phases_s": t_actor - t_lm, "actor_phases_s": t_train - t_actor,
+          "train_phases_s": t_end - t_train})
     main = scores[("main-path-base", "float32")]
     floor = scores[("launch-floor", "float32")]
     err = max(r["max_abs_err"] for (case, dt), r in scores.items()
@@ -1367,9 +1828,12 @@ def main():
         "launch_floor_device_ms": floor["device_ms"],
         "launch_floor_ms": floor["ms"],
         "above_floor_ms": floor["main_path_above_floor_ms"],
+        "launches_train_full": {arch: n["route_score"]
+                                for arch, n in train_launches.items()},
     }] + [
         kernel_entry(name, f"{csrc}/{src}.cu", f"{pallas}/{src}.py:{line}",
-                     exec_launches[name], lm_results, full_launches)
+                     exec_launches[name], lm_results, full_launches, grads,
+                     train_launches)
         for name, src, line in (("rmsnorm", "rmsnorm", 34),
                                 ("flash_attention", "flash_attention", 98),
                                 ("flash_decode", "flash_decode", 83),

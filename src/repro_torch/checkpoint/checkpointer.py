@@ -7,7 +7,11 @@ flattening: list and tuple items by index, dict items by SORTED key,
 NamedTuple fields as ``.<name>``; ``None`` holds no leaf. So an actor's
 stacked MLP (a list of ``{"w","b"}`` dicts) has the leaves ``0/b``,
 ``0/w``, ``1/b``, ... in files ``0__b.npy``, ``0__w.npy``, ..., and the
-manifest's ``leaves`` list is sorted:
+manifest's ``leaves`` list is sorted. A bf16 leaf is stored as the JAX
+package stores it: its 16-bit patterns under the ``.npy`` type ``'<V2'``
+(numpy has no bf16; JAX's ``ml_dtypes`` writes that), so the files are
+the same bytes; a ``V2`` leaf is read back as those bits.
+
 
   * **atomicity** — write ``step_N.tmp/`` then ``rename`` it, so a
     failure mid-write never corrupts the restore point;
@@ -60,10 +64,30 @@ def _unflatten(like, values, prefix=()):
     return values["/".join(prefix)]
 
 
-def _to_numpy(leaf):
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+def _save_leaf(path, leaf):
+    if not isinstance(leaf, torch.Tensor):
+        np.save(path, np.asarray(leaf))
+        return
+    leaf = leaf.detach().cpu()
+    if leaf.dtype != torch.bfloat16:
+        np.save(path, leaf.numpy())
+        return
+    bits = leaf.contiguous().view(torch.int16).numpy()
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False,
+                "shape": tuple(bits.shape)})
+        f.write(bits.tobytes())
+
+
+def _load_leaf(path, tmpl):
+    """The ``.npy`` at ``path`` in ``tmpl``'s dtype and on its device."""
+    arr = np.load(path)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:  # bf16 bits
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.as_tensor(arr)
+    return t.to(dtype=tmpl.dtype, device=tmpl.device)
 
 
 def save(ckpt_dir, step: int, tree, *, keep: int = 3, extra: dict | None = None):
@@ -77,7 +101,7 @@ def save(ckpt_dir, step: int, tree, *, keep: int = 3, extra: dict | None = None)
     flat = _flatten(tree)
     manifest = {"step": step, "leaves": sorted(flat), "extra": extra or {}}
     for key, leaf in flat.items():
-        np.save(tmp / (key.replace("/", "__") + ".npy"), _to_numpy(leaf))
+        _save_leaf(tmp / (key.replace("/", "__") + ".npy"), leaf)
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     if final.exists():
         shutil.rmtree(final)
@@ -108,11 +132,8 @@ def restore(ckpt_dir, step: int, like):
     if sorted(flat) != manifest["leaves"]:
         raise ValueError("checkpoint/model structure mismatch: "
                          f"{sorted(flat)} vs {manifest['leaves']}")
-    values = {}
-    for key, tmpl in flat.items():
-        arr = np.load(path / (key.replace("/", "__") + ".npy"))
-        values[key] = torch.as_tensor(arr).to(dtype=tmpl.dtype,
-                                              device=tmpl.device)
+    values = {key: _load_leaf(path / (key.replace("/", "__") + ".npy"), tmpl)
+              for key, tmpl in flat.items()}
     return _unflatten(like, values), manifest["extra"]
 
 

@@ -7,8 +7,9 @@ softmax in float32. bf16 runs on the tensor cores: one block per (64-query
 tile, q head, batch), QK^T and PV as ``wgmma`` products, K/V tiles staged
 by TMA in a ring of two. float32 runs on the CUDA cores (float32 ``wgmma``
 would be TF32): one block per (16-query tile, q head, batch) over 32-key
-tiles. Their plain version is ``ref.attention_ref``. Forward only: the
-backward comes with LM training.
+tiles. Their plain version is ``ref.attention_ref``. Forward only:
+``FlashAttentionFunction`` puts the kernel inside autograd, with the VJP
+of the plain version as its backward.
 
 This wrapper takes CUDA tensors only (``ops.attention`` sends CPU tensors
 to the plain version), checks them, allocates the output and launches on
@@ -22,7 +23,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import cuda_build, ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 _HEAD_DIMS = (64, 112, 128)
@@ -113,3 +114,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention`` inside autograd. The forward launches the
+    kernel and keeps q, k, v as they came; the backward is the VJP of
+    ``ref.attention_ref`` on them, as the JAX package's ``custom_vjp``
+    backward is the VJP of ``ref.attention_xla``. No backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ref.plain_vjp(
+            lambda q, k, v: ref.attention_ref(q, k, v, **ctx.opts),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], (g,)) + (None,) * 3

@@ -4,8 +4,17 @@ CPU tensors go to the plain PyTorch version in ``ref``; CUDA tensors go
 to the hand-written kernel, which raises if it cannot build or launch.
 There is no backend option and no fallback from the kernel to the plain
 version; the port ignores ``ArchConfig.kernel_backend``.
+
+When autograd records (grad mode on and an input that requires grad),
+the training kernels go through their ``torch.autograd.Function``
+(forward: the kernel; backward: the VJP of the plain version). Otherwise
+the kernel is called directly, which keeps serving's many launches a step
+free of the Function's host cost. On the CPU the plain version is
+differentiated by autograd as it stands.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref
 
@@ -17,6 +26,11 @@ def _on(name, device):
     if device.type == "cpu":
         return False
     raise ValueError(f"{name}: no kernel for device {device.type!r}")
+
+
+def _records(*tensors):
+    """True when autograd would record an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def route_score(
@@ -44,6 +58,8 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     if _on("rmsnorm", x.device):
         from repro_torch.kernels import rmsnorm as _k
 
+        if _records(x, scale):
+            return _k.RMSNormFunction.apply(x, scale, eps)
         return _k.rmsnorm(x, scale, eps=eps)
     return ref.rmsnorm_ref(x, scale, eps)
 
@@ -53,6 +69,9 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0):
     if _on("attention", q.device):
         from repro_torch.kernels import flash_attention as _k
 
+        if _records(q, k, v):
+            return _k.FlashAttentionFunction.apply(q, k, v, causal, window,
+                                                   q_offset)
         return _k.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)
     return ref.attention_ref(q, k, v, causal=causal, window=window,
@@ -70,10 +89,13 @@ def decode_attention(q, k, v, pos: int, *, window=0):
 
 def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 256):
     """Mamba2 SSD scan at prefill (``csrc/ssd_scan.cu``); ``chunk`` is the
-    plain version's block length and does not change the result."""
+    plain version's block length (also the backward's) and does not
+    change the result."""
     if _on("ssd", x.device):
         from repro_torch.kernels import ssd_scan as _k
 
+        if _records(x, dt, a_log, b, c, d_skip):
+            return _k.SSDFunction.apply(x, dt, a_log, b, c, d_skip, chunk)
         return _k.ssd(x, dt, a_log, b, c, d_skip)
     return ref.ssd_chunked_ref(x, dt, a_log, b, c, d_skip, chunk=chunk)
 

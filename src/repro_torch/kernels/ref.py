@@ -6,7 +6,9 @@ wrapper runs it, the tests hold it against the JAX package's reference,
 and ``chip_smoke.py`` holds each kernel against it on the card. The
 LM-plane versions follow the JAX package's ``repro/kernels/ref.py``
 oracles term for term; activations are laid out (batch, seq, heads,
-head_dim) as there.
+head_dim) as there. ``plain_vjp`` differentiates them: it is the backward
+of the training kernels, as the JAX package's ``custom_vjp`` backward is
+the VJP of its XLA reference.
 """
 from __future__ import annotations
 
@@ -84,6 +86,27 @@ def route_score_ref(
 
 
 NEG_INF = -1e30  # masked score: exp() of it is 0 and never NaN
+
+
+def plain_vjp(fn, inputs, needs_grad, cotangents):
+    """The VJP of the plain version ``fn`` at ``inputs``: ``fn`` is run
+    again on detached copies and differentiated. ``cotangents`` holds one
+    gradient per output of ``fn`` (None for an output that got none).
+    Returns one gradient per input: None where ``needs_grad`` is false or
+    the input does not reach a differentiated output."""
+    with torch.enable_grad():
+        args = [t.detach().requires_grad_(need) for t, need
+                in zip(inputs, needs_grad)]
+        outs = fn(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, cotangents) if g is not None]
+        wrt = [a for a in args if a.requires_grad]
+        if not pairs or not wrt:
+            return (None,) * len(inputs)
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                         [g for _, g in pairs],
+                                         allow_unused=True))
+    return tuple(next(grads) if a.requires_grad else None for a in args)
 
 
 # =============================== RMSNorm ======================================
@@ -229,7 +252,14 @@ def ssd_naive_ref(x, dt, a_log, b, c, d_skip):
 def ssd_chunked_ref(x, dt, a_log, b, c, d_skip, chunk: int = 256):
     """SSD chunked algorithm (Mamba2 paper §6): quadratic inside a chunk,
     recurrent across chunks. A ragged tail is padded with dt=0 steps,
-    which leave the state and the real outputs unchanged."""
+    which leave the state and the real outputs unchanged.
+
+    The decay above the diagonal is masked before the ``exp``: there
+    ``cum_i - cum_j`` is positive and, with a strong decay over a long
+    chunk, past float32's ``exp`` range. The reference's
+    ``ssd_chunked_xla`` takes ``exp`` first and masks after, which gives
+    the same values but a NaN gradient (0 * inf) once that overflows; this
+    function is the training kernel's backward, so it masks first."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     s_orig = s
@@ -255,7 +285,8 @@ def ssd_chunked_ref(x, dt, a_log, b, c, d_skip, chunk: int = 256):
         cum = torch.cumsum(a[None, None] * dtc, dim=1)          # (B, Q, H)
         total = cum[:, -1]                                      # (B, H)
         li = cum[:, :, None, :] - cum[:, None, :, :]            # (B, Q, Q, H)
-        decay_mat = torch.where(causal[None, :, :, None], torch.exp(li), 0.0)
+        decay_mat = torch.exp(li.masked_fill(~causal[None, :, :, None],
+                                             -math.inf))
         scores = torch.einsum("bin,bjn->bij", cc, bc)
         gate = scores[..., None] * decay_mat
         xdt = xc * dtc[..., None]                               # (B, Q, H, P)

@@ -11,7 +11,8 @@ to the plain version), checks them, allocates the output, picks how many
 warps share a row (``warps_per_row``) and launches on PyTorch's current
 stream: one launch per call, scale read in its own type (float32 or
 bf16; any other type is converted first). ``rmsnorm.launches`` counts
-launches.
+launches. ``RMSNormFunction`` puts the kernel inside autograd for
+training.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import cuda_build, ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 _MAX_VECTORS = 16    # 16-byte vectors a lane holds (csrc/rmsnorm.cu)
@@ -101,3 +102,22 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
 
 
 rmsnorm.launches = 0
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """``rmsnorm`` inside autograd. The forward launches the kernel and
+    keeps the inputs as they came; the backward is the VJP of the plain
+    version ``ref.rmsnorm_ref`` on them (the JAX package trains through
+    the same function's XLA form). No backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ref.plain_vjp(
+            lambda x, s: ref.rmsnorm_ref(x, s, ctx.eps), ctx.saved_tensors,
+            ctx.needs_input_grad[:2], (g,)) + (None,)

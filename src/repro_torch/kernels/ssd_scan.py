@@ -8,8 +8,9 @@ products run on the tensor cores (``wgmma``, 64-column tiles), in float32
 on CUDA cores (32-column tiles). Its plain version in the same order is
 ``ref.ssd_tiled_ref``; it computes the function of
 ``ref.ssd_chunked_ref`` and of the recurrence ``ref.ssd_naive_ref``, and
-the config's chunk length does not enter it. Forward only: the backward
-comes with LM training.
+the config's chunk length does not enter it. Forward only:
+``SSDFunction`` puts the kernel inside autograd, with the VJP of
+``ref.ssd_chunked_ref`` at the config's chunk as its backward.
 
 This wrapper takes CUDA tensors only (``ops.ssd`` sends CPU tensors to
 the plain version), checks them, brings b and c to x's type and dt,
@@ -24,7 +25,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import cuda_build
+from repro_torch.kernels import cuda_build, ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 _MAX_STATE = 128   # N: b and c tiles of a chunk in shared memory
@@ -100,3 +101,25 @@ def ssd(x, dt, a_log, b, c, d_skip):
 
 
 ssd.launches = 0
+
+
+class SSDFunction(torch.autograd.Function):
+    """``ssd`` inside autograd. The forward launches the kernel and keeps
+    the six inputs as they came (before the wrapper's casts); the backward
+    is the VJP of ``ref.ssd_chunked_ref`` at ``chunk`` on them, as the JAX
+    package's ``custom_vjp`` backward is the VJP of ``ref.ssd_chunked_xla``.
+    Either output may go without a gradient (None). No backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, d_skip, chunk):
+        ctx.save_for_backward(x, dt, a_log, b, c, d_skip)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return ssd(x, dt, a_log, b, c, d_skip)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        return ref.plain_vjp(
+            lambda *args: ref.ssd_chunked_ref(*args, chunk=ctx.chunk),
+            ctx.saved_tensors, ctx.needs_input_grad[:6],
+            (gy, gstate)) + (None,)

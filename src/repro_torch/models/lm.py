@@ -1,6 +1,7 @@
 """Full language model: embeddings -> layer stack -> norm -> head, with
-``forward`` (teacher-forced), ``prefill``, ``init_cache`` and
-``decode_step`` (serving). Port of ``repro/models/lm.py``.
+``loss_fn`` (training), ``forward`` (teacher-forced), ``prefill``,
+``init_cache`` and ``decode_step`` (serving). Port of
+``repro/models/lm.py``.
 
 Modality frontends, as in the reference:
   * text  — token embedding lookup.
@@ -12,11 +13,13 @@ Modality frontends, as in the reference:
 ``init_params`` draws from a ``torch.Generator`` with the reference's
 distributions and scales (not its numbers: ``jax.random`` is not
 replayed); ``convert.params_from_jax`` carries the reference's own
-parameters across. The serving functions run without autograd.
+parameters across. ``loss_fn`` records autograd through
+``teacher_forced``; ``forward`` and the serving functions run without it.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -55,13 +58,16 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> LanguageModel:
 
 
 def embed(params, tokens, cfg: ArchConfig, patch_embeds=None):
+    """Token embeddings by ``F.embedding``: the reference's gather, and
+    on the CPU its backward sums each row's gradients in a fixed order
+    (an indexing backward's accumulation there is not)."""
     cd = dtype_of(cfg.compute_dtype)
     if cfg.modality == "audio":
         # tokens: (B, S, n_codebooks) — sum the per-codebook embeddings
-        x = sum(params.embed[c][tokens[..., c]]
+        x = sum(F.embedding(tokens[..., c], params.embed[c])
                 for c in range(cfg.num_codebooks)).to(cd)
     else:
-        x = params.embed[tokens].to(cd)
+        x = F.embedding(tokens, params.embed).to(cd)
     if cfg.modality == "image" and patch_embeds is not None:
         x = x + patch_embeds.to(cd)
     return x
@@ -76,14 +82,38 @@ def unembed(params, x, cfg: ArchConfig):
     return x @ w.to(cd)
 
 
-@torch.no_grad()
-def forward(params, tokens, cfg: ArchConfig, *, patch_embeds=None):
-    """Teacher-forced forward. Returns (logits, aux)."""
+def teacher_forced(params, tokens, cfg: ArchConfig, *, patch_embeds=None):
+    """Teacher-forced forward, recorded by autograd when grad mode is on
+    (the stack checkpoints its blocks by ``cfg.remat``). Returns (logits,
+    aux)."""
     x = embed(params, tokens, cfg, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, _, aux = transformer.stack_apply(params.stack, x, positions, cfg)
     x = layers.rmsnorm_apply(params.final_norm, x, cfg)
     return unembed(params, x, cfg), aux
+
+
+@torch.no_grad()
+def forward(params, tokens, cfg: ArchConfig, *, patch_embeds=None):
+    """Teacher-forced forward without autograd. Returns (logits, aux)."""
+    return teacher_forced(params, tokens, cfg, patch_embeds=patch_embeds)
+
+
+def loss_fn(params, batch, cfg: ArchConfig, *, aux_weight=0.01):
+    """Mean next-token cross-entropy (float32 log-softmax) + the MoE aux
+    loss: ``(loss, {"nll", "aux"})``, float32 tensors. Audio averages over
+    the codebooks too. The gold logit is a gather where the reference
+    contracts with a one-hot (which keeps its vocab axis sharded): exactly
+    one term of that sum is nonzero, so the value is the same, without a
+    (B, S, V) float32 one-hot."""
+    logits, aux = teacher_forced(params, batch["tokens"], cfg,
+                                 patch_embeds=batch.get("patch_embeds"))
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, batch["labels"].long()[..., None])
+    nll = (lse - gold[..., 0]).mean()
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=nll.device)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 @torch.no_grad()
@@ -161,3 +191,9 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig, *,
     x = layers.rmsnorm_apply(params.final_norm, x, cfg)
     logits = unembed(params, x, cfg)
     return torch.argmax(logits, dim=-1), logits, cache
+
+
+def param_count(params) -> int:
+    """Parameters of the model, each tensor once (a tied head is the
+    embedding; zamba2's shared block is one module)."""
+    return sum(p.numel() for p in params.parameters())

@@ -14,11 +14,20 @@ reference's; the hybrid's are nested, ``{"groups": (n_groups, period,
 ...), "shared_attn": (n_groups, ...), "tail": (tail, ...)}``. Decode
 updates them in place and returns the same dict. ``aux`` is the MoE
 blocks' router loss summed over the layers (0.0 without experts).
+
+In training (grad mode on, no caches) each block runs under
+``cfg.remat``, as the reference's ``_maybe_remat``: ``"full"`` keeps only
+the block's inputs and recomputes the block in the backward, ``"dots"``
+also keeps the matrix products' outputs, ``"none"`` keeps everything.
+Remat changes no number.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers, mamba2, moe
@@ -67,6 +76,40 @@ def mamba_block_apply(params, x, cfg: ArchConfig, *, cache=None,
     return x + h, new_cache, 0.0
 
 
+# ============================ remat ===========================================
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return (checkpoint.CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ArchConfig, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under the config's remat policy when
+    autograd records, else as it stands. The blocks draw no random
+    numbers, so the RNG state is not saved for the recompute."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    if cfg.remat == "full":
+        context = checkpoint.noop_context_fn
+    elif cfg.remat == "dots":
+        make = getattr(checkpoint, "create_selective_checkpoint_contexts",
+                       None)
+        if make is None:
+            raise RuntimeError(
+                f"remat='dots' needs torch.utils.checkpoint."
+                f"create_selective_checkpoint_contexts, which torch "
+                f"{torch.__version__} lacks")
+        context = functools.partial(make, _save_matmuls)
+    else:
+        raise ValueError(f"remat={cfg.remat!r}: expected none, full or dots")
+    return checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                 context_fn=context, preserve_rng_state=False,
+                                 **kwargs)
+
+
 # ============================ stacks ==========================================
 def _blocks(block, cfg, gen, n):
     return nn.ModuleList(block(cfg, gen) for _ in range(n))
@@ -109,11 +152,12 @@ def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache):
     for i, blk in enumerate(blocks):
         view = {k: v[i] for k, v in caches.items()} if decode else None
         if isinstance(blk, DenseBlock):
-            x, nc, a = dense_block_apply(blk, x, positions, cfg, cache=view,
-                                         pos=pos, collect_cache=collect_cache)
+            x, nc, a = _remat(dense_block_apply, cfg, blk, x, positions, cfg,
+                              cache=view, pos=pos,
+                              collect_cache=collect_cache)
         else:
-            x, nc, a = mamba_block_apply(blk, x, cfg, cache=view,
-                                         collect_cache=collect_cache)
+            x, nc, a = _remat(mamba_block_apply, cfg, blk, x, cfg,
+                              cache=view, collect_cache=collect_cache)
         aux = aux + a
         if decode:
             for k, new in nc.items():
@@ -142,8 +186,8 @@ def stack_apply(params, x, positions, cfg: ArchConfig, *, caches=None,
         x, gc, _ = _run(group, x, positions, cfg, caches=view("groups", g),
                         **kw)
         # the same weights after every group; its own cache slot each time
-        x, ac, _ = dense_block_apply(params.shared_attn, x, positions, cfg,
-                                     cache=view("shared_attn", g), **kw)
+        x, ac, _ = _remat(dense_block_apply, cfg, params.shared_attn, x,
+                          positions, cfg, cache=view("shared_attn", g), **kw)
         groups.append(gc)
         shared.append(ac)
     if hasattr(params, "tail"):

@@ -4,7 +4,11 @@ API as the reference's (and optax's): ``init_fn(params) -> state``,
 ``update_fn(grads, state, params) -> (updates, state)``, applied with
 ``apply_updates``. The arithmetic is the reference's, op for op:
 bias-corrected moments, ``eps`` outside the square root, decoupled
-weight decay, float32 moments. ``torch.optim.AdamW`` rounds otherwise.
+weight decay, the math in float32 and the moments stored in
+``moment_dtype`` (bf16 for the 100B+ configs). ``torch.optim.AdamW``
+rounds otherwise. The reference's ``scan_stacked`` (the update mapped
+over the layer axis of its stacked leaves, to bound the float32 working
+copies) has no counterpart: the port's layers are separate leaves.
 """
 from __future__ import annotations
 
@@ -57,18 +61,24 @@ def _leaves(tree):
 
 
 def clip_by_global_norm(grads, max_norm: float):
+    """Scales every gradient by ``min(1, max_norm / norm)``. The product
+    takes JAX's type: a bf16 gradient times the float32 scale is float32
+    (torch would keep bf16)."""
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                            for g in _leaves(grads)))
     scale = torch.clamp_max(max_norm / (gnorm + 1e-9), 1.0)
-    return tree_map(lambda g: g * scale, grads), gnorm
+    return tree_map(
+        lambda g: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale,
+        grads), gnorm
 
 
 def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.999,
-          eps: float = 1e-8, weight_decay: float = 0.0):
+          eps: float = 1e-8, weight_decay: float = 0.0,
+          moment_dtype=torch.float32):
     sched = lr if callable(lr) else (lambda _: lr)
 
     def init_fn(params) -> OptState:
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+        zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype,
                                       device=p.device)
         return OptState(step=0, mu=tree_map(zeros, params),
                         nu=tree_map(zeros, params))
@@ -87,7 +97,7 @@ def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.999,
             vhat = v32 / c2
             u = -lr_t * (mhat / (torch.sqrt(vhat) + eps)
                          + weight_decay * p.to(torch.float32))
-            return u.to(p.dtype), m32, v32
+            return u.to(p.dtype), m32.to(moment_dtype), v32.to(moment_dtype)
 
         out = tree_map(lambda g, m, v, p: upd(g, m, v, p), grads, state.mu,
                        state.nu, params)

@@ -3,9 +3,17 @@
 An actor pytree saved by one package restores in the other with every
 array bit-identical, the manifests carry the same ``leaves`` and
 ``extra``, ``latest_step`` ignores uncommitted ``.tmp`` directories and
-``keep`` removes the oldest steps.
+``keep`` removes the oldest steps. bf16 leaves (every full-width LM
+config's parameters) are written as the JAX package writes them, their
+16-bit patterns under the ``.npy`` type ``'<V2'``: a bf16 tree round-trips
+bit for bit, a bf16 leaf the JAX checkpointer wrote restores in the port,
+and the port's files are the JAX package's bytes. (The JAX checkpointer
+cannot restore its own bf16 leaves: ``jnp.asarray`` of a ``V2`` array
+raises; ROADMAP.md "Facts".)
 """
 import json
+
+import jax.numpy as jnp
 
 import jax
 import numpy as np
@@ -94,3 +102,50 @@ def test_latest_step_ignores_tmp_and_keep_collects(tmp_path):
     tck.save(tmp_path, 5, tree, keep=0)   # keep=0 retains everything
     assert tck.latest_step(tmp_path) == 5
     assert (tmp_path / "step_3").exists()
+
+
+def _bf16_tree():
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((3, 5)).astype(np.float32)
+    b = rng.standard_normal((4,)).astype(np.float32)
+    jtree = {"stack": {"w": jnp.asarray(a, jnp.bfloat16)},
+             "scale": jnp.asarray(b, jnp.bfloat16), "f": jnp.asarray(b)}
+    ttree = {"stack": {"w": torch.from_numpy(a).bfloat16()},
+             "scale": torch.from_numpy(b).bfloat16(), "f": torch.from_numpy(b)}
+    return jtree, ttree
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def test_bf16_tree_round_trips_bit_for_bit(tmp_path):
+    _, ttree = _bf16_tree()
+    ttree["stack"]["w"][0, 0] = float("nan")
+    ttree["scale"][1] = -0.0
+    tck.save(tmp_path, 1, ttree)
+    back, _ = tck.restore(tmp_path, 1, ttree)
+    for key in ("scale", "f"):
+        assert back[key].dtype == ttree[key].dtype
+        assert torch.equal(_bits(back[key]), _bits(ttree[key]))
+    assert torch.equal(_bits(back["stack"]["w"]), _bits(ttree["stack"]["w"]))
+
+
+def test_bf16_files_match_the_reference_and_restore_in_the_port(tmp_path):
+    jtree, ttree = _bf16_tree()
+    jck.save(tmp_path / "ref", 2, jtree)
+    tck.save(tmp_path / "port", 2, ttree)
+    ref_dir, port_dir = tmp_path / "ref" / "step_2", tmp_path / "port" / "step_2"
+    names = sorted(p.name for p in ref_dir.iterdir())
+    assert names == sorted(p.name for p in port_dir.iterdir())
+    for name in names:
+        assert (ref_dir / name).read_bytes() == (port_dir / name).read_bytes()
+    assert np.load(port_dir / "scale.npy").dtype.str == "|V2"
+    back, _ = tck.restore(tmp_path / "ref", 2, ttree)
+    assert back["scale"].dtype == torch.bfloat16
+    assert torch.equal(_bits(back["scale"]), _bits(ttree["scale"]))
+    assert torch.equal(_bits(back["stack"]["w"]), _bits(ttree["stack"]["w"]))
+    # a bf16 leaf read into a float32 template widens exactly
+    widened, _ = tck.restore(tmp_path / "ref", 2,
+                             {**ttree, "scale": torch.empty(4)})
+    assert torch.equal(widened["scale"], ttree["scale"].float())
