@@ -79,10 +79,27 @@ Phases, one JSON line each (after the card's name and power limit):
     ``serve(policy="actor:<ckpt>")`` with the stats of the direct route;
 11. ``simulate``: the same stream in windows of 256 for greedy and the
     actor; every per-window series equal to the CPU's, in those terms;
-12. ``evaluate``: ``evaluate_policy`` for the trained actor, random and
+12. ``mesh_serve``: the mesh-sharded router (``core.mesh_router``) at
+    D = 1. The README's multi-cell stream (4096 ``slo-mix`` requests,
+    4 cells x 16 + cloud, drain 20000 tok/s, float32) through
+    ``route_batch_sharded`` on the scan, correction and speculative
+    paths: integer decisions identical across them and equal to the CPU
+    port's sharded route; route time, ``route_score`` launches and rows,
+    the cloud replay's own time; the choices that differ from the
+    unsharded route, printed, not held. The cloud-free variant (drain 0)
+    bitwise equal to the card's unsharded ``route_batch`` on each path.
+    A spill fleet (a ring over the 4 cells) against the CPU, with the
+    spill replay's time. The ``actor-16x3-cloud`` stream through
+    ``actor_policy_for_cell_blocks`` (the ``maddpg_train`` actor):
+    choices, causes and hits equal to the CPU's. ``route_score`` held
+    against its plain version at the shapes the blocks handed it,
+    ``+inf`` padding rows included: bitwise, the same ``+inf`` set, no
+    NaN. ``simulate(num_devices=1)`` over 16 windows of 256 equal to the
+    CPU's, and ``serve(mesh=1)`` with the direct route's stats;
+13. ``evaluate``: ``evaluate_policy`` for the trained actor, random and
     greedy over 32 episodes: latency, energy, completion and switch
     latency, printed, not held;
-13. ``train_kernel_grads``: rmsnorm, flash attention and the SSD scan
+14. ``train_kernel_grads``: rmsnorm, flash attention and the SSD scan
     inside autograd (``ops`` sends grad-recording CUDA tensors through
     each kernel's ``torch.autograd.Function``) at training shapes
     (``train_grad_cases``: the shapes a ``train_full`` step hands each
@@ -95,15 +112,15 @@ Phases, one JSON line each (after the card's name and power limit):
     the CPU tests hold that VJP against ``jax.vjp`` of the Pallas
     kernels); the forward kernel, the backward and the plain backward
     timed;
-14. ``train_parity``: the ten archs at ``reduced()``, the same weights
+15. ``train_parity``: the ten archs at ``reduced()``, the same weights
     and pipeline batches, 3 train steps on the card and on the CPU port:
     losses, grad norms and the parameters after the last step within
     ``PARITY_TOL``; each training kernel launched on the card;
-15. ``train_reduced``: ``launch.train`` for 200 steps of reduced
+16. ``train_reduced``: ``launch.train`` for 200 steps of reduced
     smollm-135m (batch 8 x 256) with checkpoints every 100: the loss
     drops by more than 0.3, and a run resumed from ``step_100`` repeats
     the last 100 steps within ``RESUME_TOL``;
-16. ``train_full``: smollm-135m at its published config and mamba2-2.7b
+17. ``train_full``: smollm-135m at its published config and mamba2-2.7b
     at full width with 8 of 64 layers, bf16 with the configs' remat and
     grad_accum (``TRAIN_FULL``): 3 warm-up and 20 timed steps; tokens/s,
     the median step, peak memory, each kernel's launches in one step
@@ -113,16 +130,17 @@ Phases, one JSON line each (after the card's name and power limit):
     share, heaviest kernels) and one more with each of its parts
     (forward, backward, optimizer) profiled through the step's ``part``
     hook. Recorded, not held;
-17. a ``kernels`` line with each kernel's launches on its main path (the
+18. a ``kernels`` line with each kernel's launches on its main path (the
     fleet-scale speculative serve for ``route_score``, and its launches
-    on the actor path beside them; execute-serving for the others, and
+    on the actor and mesh paths beside them, with the mesh blocks'
+    cases; execute-serving for the others, and
     their launches on each full-width arch's run beside them), its
     error against the plain version, its time, the plain version's time,
     the library call's time and its bound, and beside them the same
     numbers at each full-width arch's bf16 case (``FULL_CASE``), the
     training cases' forward and backward times and each kernel's
     launches in one ``train_full`` step;
-18. the last line, ``{"ok": true, "device": {...}}``.
+19. the last line, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32: TF32 is off for cuBLAS and
 cuDNN. Any failed check exits non-zero; without a card, or outside a
@@ -132,6 +150,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
+import inspect
 import json
 import math
 import tempfile
@@ -191,6 +211,8 @@ TRAIN_HEAD112 = ("zamba2_7b", 4, 512)  # head size 112; no train_full run
 ACTOR_FLEET = dict(n_cells=16, servers_per_cell=3, drain_rate=20000.0)
 ACTOR_STREAM = dict(scenario="hotspot-cell", num_requests=N_REQUESTS)
 SIM_WINDOW, EVAL_EPISODES = 256, 32
+MESH_CELL = dict(n_cells=4, servers_per_cell=16, drain_rate=20000.0,
+                 scenario="slo-mix", gen_tokens=8)  # the README's cells form
 
 
 def emit(obj):
@@ -1100,19 +1122,27 @@ def phase_actor_checkpoint(torch, networks, policies, ts, p, cfg, ckpt):
 
 
 @contextlib.contextmanager
-def rows_recorded(ops, rows):
-    """``ops.route_score`` (what the router calls) noting each call's rows."""
+def calls_recorded(ops, calls):
+    """``ops.route_score`` (what the router calls) noting each call's
+    arguments by name, as a dict of every parameter."""
     plain = ops.route_score
+    sig = inspect.signature(plain)
 
-    def record(prompt_bits, *args, **kwargs):
-        rows.append(int(prompt_bits.shape[0]))
-        return plain(prompt_bits, *args, **kwargs)
+    def record(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        calls.append(dict(bound.arguments))
+        return plain(*args, **kwargs)
 
     ops.route_score = record
     try:
         yield
     finally:
         ops.route_score = plain
+
+
+def rows_of(calls):
+    return [int(c["prompt_bits"].shape[0]) for c in calls]
 
 
 def actor_setup(torch, batch_router, serve_mod, workloads, catalog, device,
@@ -1158,8 +1188,8 @@ def phase_actor_serve(torch, kernel, ops, batch_router, policies, serve_mod,
         if device == "cuda":
             torch.cuda.synchronize()
         columns_s = time.perf_counter() - t0
-        rows = []
-        with rows_recorded(ops, rows):
+        calls = []
+        with calls_recorded(ops, calls):
             kernel.route_score.launches = 0
             t0 = time.perf_counter()
             st, out = batch_router.route_batch(params, state, reqs,
@@ -1169,6 +1199,7 @@ def phase_actor_serve(torch, kernel, ops, batch_router, policies, serve_mod,
                 torch.cuda.synchronize()
             route_s = time.perf_counter() - t0
             launches = kernel.route_score.launches
+        rows = rows_of(calls)
         host = {k: v.cpu() for k, v in dict(
             choice=out.choice, cause=out.cause, hit=out.hit,
             latency=out.latency).items()}
@@ -1253,6 +1284,28 @@ def phase_actor_serve(torch, kernel, ops, batch_router, policies, serve_mod,
     return launches_by
 
 
+def same_series(np, gpu, cpu, what):
+    """Check one simulated episode's series, card against CPU: window
+    sizes equal, every series within 1e-6 relative. Returns the largest
+    relative difference."""
+    check(np.array_equal(gpu.requests, cpu.requests),
+          f"{what}: window sizes differ")
+    worst = 0.0
+    for f in gpu._fields:
+        a, b = getattr(gpu, f), getattr(cpu, f)
+        check((a is None) == (b is None), f"{what}: {f}")
+        if a is None:
+            continue
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        check(np.allclose(a, b, rtol=1e-6, atol=0.0, equal_nan=True),
+              f"{what}: {f} differs from the CPU")
+        fin = np.isfinite(b) & (b != 0)
+        if fin.any():
+            worst = max(worst, float(np.max(np.abs(a[fin] - b[fin])
+                                            / np.abs(b[fin]))))
+    return worst
+
+
 def phase_simulate(np, torch, batch_router, policies, serve_mod, workloads,
                    catalog, ckpt):
     for name in ("greedy", "actor"):
@@ -1268,21 +1321,7 @@ def phase_simulate(np, torch, batch_router, policies, serve_mod, workloads,
                 window_requests=SIM_WINDOW, chunk=CHUNK, cloud_index=cloud)
             secs[device] = time.perf_counter() - t0
         gpu, cpu = series["cuda"], series["cpu"]
-        check(np.array_equal(gpu.requests, cpu.requests),
-              f"simulate {name}: window sizes differ")
-        worst = 0.0
-        for f in gpu._fields:
-            a, b = getattr(gpu, f), getattr(cpu, f)
-            check((a is None) == (b is None), f"simulate {name}: {f}")
-            if a is None:
-                continue
-            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-            check(np.allclose(a, b, rtol=1e-6, atol=0.0, equal_nan=True),
-                  f"simulate {name}: {f} differs from the CPU")
-            fin = np.isfinite(b) & (b != 0)
-            if fin.any():
-                worst = max(worst, float(np.max(np.abs(a[fin] - b[fin])
-                                                / np.abs(b[fin]))))
+        worst = same_series(np, gpu, cpu, f"simulate {name}")
         emit({"phase": "simulate", "policy": name, "windows": len(gpu.requests),
               "window_requests": SIM_WINDOW, "sim_s": secs["cuda"],
               "cpu_sim_s": secs["cpu"],
@@ -1290,6 +1329,303 @@ def phase_simulate(np, torch, batch_router, policies, serve_mod, workloads,
               "residency_hit_rate_by_window": gpu.residency_hit_rate.tolist(),
               "queue_p90_last": float(gpu.queue_p90[-1]),
               "max_rel_diff_vs_cpu": worst, "series_equal_cpu": True})
+
+
+def mesh_setup(torch, batch_router, serve_mod, workloads, catalog, device, *,
+               cloud=True, drain_rate=MESH_CELL["drain_rate"], spill=None):
+    """The README's multi-cell stream (4096 ``slo-mix`` requests of 8
+    tokens, float32) on 4 cells x 16 edge servers, with or without the
+    cloud column, as ``serve(n_cells=4, n_servers=16)`` builds it."""
+    cells = MESH_CELL["n_cells"]
+    fleet = serve_mod.make_multicell_fleet(
+        cells, MESH_CELL["servers_per_cell"], catalog, drain_rate=drain_rate,
+        cloud=cloud)
+    params, state = batch_router.fleet_from_servers(
+        fleet, catalog, spill=spill, dtype=torch.float32, device=device)
+    spec = workloads.get_scenario(
+        MESH_CELL["scenario"], num_requests=N_REQUESTS)._replace(
+            gen_tokens=(MESH_CELL["gen_tokens"],) * 2)
+    reqs = workloads.compile_scenario(
+        spec, seed=0, num_models=len(catalog), num_cells=cells, device=device,
+        dtype=torch.float32)
+    return params, state, reqs, len(fleet) - 1 if cloud else None
+
+
+@contextlib.contextmanager
+def replays_timed(torch, mesh_router, seconds):
+    """The mesh router's window-close replays (``_cloud_replay`` on the
+    host, ``_spill_replay`` on the fleet's device), each timed on its own
+    between two synchronisations of the card."""
+    plain = {name: getattr(mesh_router, name)
+             for name in ("_cloud_replay", "_spill_replay")}
+
+    def timed(name):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = plain[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    for name in plain:
+        setattr(mesh_router, name, timed(name))
+    try:
+        yield
+    finally:
+        for name, fn in plain.items():
+            setattr(mesh_router, name, fn)
+
+
+def routed(torch, kernel, ops, mesh_router, route):
+    """``route()`` with the route_score count set to 0 just before and read
+    just after: (state, outcome, route_s, launches, the route_score calls,
+    the replays' seconds)."""
+    calls, seconds = [], {}
+    with calls_recorded(ops, calls), \
+            replays_timed(torch, mesh_router, seconds):
+        torch.cuda.synchronize()
+        kernel.route_score.launches = 0
+        t0 = time.perf_counter()
+        st, out = route()
+        torch.cuda.synchronize()
+        route_s = time.perf_counter() - t0
+        launches = kernel.route_score.launches
+    return st, out, route_s, launches, calls, seconds
+
+
+def host_outputs(torch, st, out):
+    host = {k: v.cpu() for k, v in dict(
+        choice=out.choice, cause=out.cause, hit=out.hit,
+        latency=out.latency, resident=st.resident, last_use=st.last_use,
+        queue=st.queue_tokens, clock=st.clock, time_s=st.time_s).items()}
+    host["last_use"] = torch.where(host["resident"], host["last_use"], 0)
+    return host
+
+
+def same_decisions(torch, a, b, what,
+                   keys=("choice", "cause", "hit", "resident", "last_use",
+                         "clock")):
+    for k in keys:
+        check(torch.equal(a[k], b[k]), f"{what}: {k} differs")
+
+
+def close_latency(torch, gpu, cpu, what):
+    """Completed requests' latencies, card vs CPU, within 1e-6 relative
+    and finite; returns the largest absolute difference."""
+    done = gpu["choice"] >= 0
+    a, b = gpu["latency"][done], cpu["latency"][done]
+    err = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    check(torch.allclose(a, b, rtol=1e-6, atol=0.0),
+          f"{what}: card vs CPU latency {err}")
+    check(bool(torch.isfinite(a).all()), f"{what}: non-finite latency")
+    return err
+
+
+def phase_mesh_serve(np, torch, kernel, ref, ops, batch_router, mesh_router,
+                     policies, serve_mod, workloads, catalog, ckpt):
+    setup = functools.partial(mesh_setup, torch, batch_router, serve_mod,
+                              workloads, catalog)
+
+    def sharded(device, path, policy="greedy", **kw):
+        params, state, reqs, _ = setup(device, **kw)
+        return routed(torch, kernel, ops, mesh_router,
+                      lambda: mesh_router.route_batch_sharded(
+                          params, state, reqs, num_devices=1, policy=policy,
+                          **PATHS[path]))
+
+    cloud = MESH_CELL["n_cells"] * MESH_CELL["servers_per_cell"]
+    launches_by, held = {}, {}
+    # 1. cells-4x16-cloud by cell blocks at D = 1, on the three paths
+    first = direct_stats = None
+    for path in PATHS:
+        st, out, route_s, launches, calls, secs = sharded("cuda", path)
+        gpu = host_outputs(torch, st, out)
+        cst, cout, cpu_s, _, cpu_calls, cpu_secs = sharded("cpu", path)
+        cpu = host_outputs(torch, cst, cout)
+        same_decisions(torch, gpu, cpu, f"mesh_serve {path}: card vs CPU")
+        lat_err = close_latency(torch, gpu, cpu, f"mesh_serve {path}")
+        check(int(gpu["clock"]) == N_REQUESTS, f"mesh_serve {path}: clock")
+        rows = rows_of(calls)
+        check(launches == len(calls) and rows == rows_of(cpu_calls),
+              f"mesh_serve {path}: {launches} launches for {len(calls)} "
+              f"calls, rows {rows} against the CPU's {rows_of(cpu_calls)}")
+        check(launches == 0 if path == "scan"
+              else launches >= N_REQUESTS // CHUNK,
+              f"mesh_serve {path}: {launches} route_score launches")
+        if first is None:
+            first = gpu
+        else:
+            same_decisions(torch, gpu, first, f"mesh_serve: {path} vs scan")
+        launches_by[path] = launches
+        if path == "speculative":
+            direct_stats = batch_router.stats(out, cloud_index=cloud)
+            padded = [c for c in calls if bool(torch.isinf(
+                c["prompt_bits"]).any())]
+            check(padded, "mesh_serve: no route_score call of the blocks "
+                  "held +inf padding rows")
+            held["cells-block-padded"] = padded[0]
+            held["cells-block"] = calls[0]
+        emit({"phase": "mesh_serve", "cell": "cells-4x16-cloud",
+              "devices": 1, "path": path, "requests": N_REQUESTS,
+              "route_s": route_s, "cpu_route_s": cpu_s,
+              "cloud_replay_s": secs.get("_cloud_replay"),
+              "cpu_cloud_replay_s": cpu_secs.get("_cloud_replay"),
+              "route_score_launches": launches,
+              "route_score_rows": {str(r): rows.count(r) for r in set(rows)},
+              "cloud_fallback_rate": float(
+                  (gpu["choice"] == cloud).float().mean()),
+              "max_abs_latency_diff_vs_cpu": lat_err,
+              "decisions_equal_cpu": True, "decisions_equal_scan": True})
+    # the window semantics under cloud contention, printed, not held
+    params, state, reqs, _ = setup("cuda")
+    _, plain_out, plain_s, _, _, _ = routed(
+        torch, kernel, ops, mesh_router,
+        lambda: batch_router.route_batch(params, state, reqs,
+                                         **PATHS["speculative"]))
+    differ = plain_out.choice.cpu() != first["choice"]
+    emit({"phase": "mesh_serve", "cell": "cells-4x16-cloud",
+          "vs_unsharded": "speculative", "unsharded_route_s": plain_s,
+          "choices_differing": int(differ.sum()),
+          "differing_to_or_from_cloud": int((differ & (
+              (plain_out.choice.cpu() == cloud)
+              | (first["choice"] == cloud))).sum())})
+
+    # 2. cloud-free, drain 0: the window IS the one-device route
+    for path in PATHS:
+        kw = dict(cloud=False, drain_rate=0.0)
+        st, out, route_s, launches, _, _ = sharded("cuda", path, **kw)
+        params, state, reqs, _ = setup("cuda", **kw)
+        pst, pout, plain_s, plain_launches, _, _ = routed(
+            torch, kernel, ops, mesh_router,
+            lambda: batch_router.route_batch(params, state, reqs,
+                                             **PATHS[path]))
+        a, b = host_outputs(torch, st, out), host_outputs(torch, pst, pout)
+        for k in a:
+            check(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]),
+                  f"mesh_serve cloud-free {path}: {k} not bitwise the "
+                  "unsharded route's")
+        launches_by[f"cloud-free-{path}"] = launches
+        emit({"phase": "mesh_serve", "cell": "cells-4x16", "path": path,
+              "route_s": route_s, "unsharded_route_s": plain_s,
+              "route_score_launches": launches,
+              "unsharded_route_score_launches": plain_launches,
+              "bitwise_equal_unsharded": True})
+
+    # 3. the spill replay: a ring of 4 cells, full replication
+    ring = np.zeros((4, 4), bool)
+    for c in range(4):
+        ring[c, (c + 1) % 4] = ring[c, (c - 1) % 4] = True
+    st, out, route_s, launches, calls, secs = sharded(
+        "cuda", "speculative", spill=ring)
+    gpu = host_outputs(torch, st, out)
+    cst, cout, cpu_s, _, cpu_calls, cpu_secs = sharded(
+        "cpu", "speculative", spill=ring)
+    cpu = host_outputs(torch, cst, cout)
+    same_decisions(torch, gpu, cpu, "mesh_serve spill: card vs CPU")
+    lat_err = close_latency(torch, gpu, cpu, "mesh_serve spill")
+    check(torch.allclose(gpu["queue"], cpu["queue"], rtol=1e-6, atol=0.0),
+          "mesh_serve spill: carried queues differ from the CPU's")
+    rows = rows_of(calls)
+    check(launches == len(calls) >= 4 and rows == rows_of(cpu_calls),
+          f"mesh_serve spill: {launches} launches, rows {rows}")
+    launches_by["spill-speculative"] = launches
+    held["spill-bucket"] = calls[0]
+    emit({"phase": "mesh_serve", "cell": "cells-4x16-cloud-spill-ring",
+          "path": "speculative", "route_s": route_s, "cpu_route_s": cpu_s,
+          "spill_replay_s": secs["_spill_replay"],
+          "cpu_spill_replay_s": cpu_secs["_spill_replay"],
+          "route_score_launches": launches,
+          "route_score_rows": {str(r): rows.count(r) for r in set(rows)},
+          "max_abs_latency_diff_vs_cpu": lat_err,
+          "decisions_equal_cpu": True})
+
+    # 4. the block-local actor on the actor-16x3-cloud stream
+    def actor_route(device):
+        params, state, reqs, cloud = actor_setup(
+            torch, batch_router, serve_mod, workloads, catalog, device)
+        actor, spec, extra = policies.load_actor_checkpoint(ckpt,
+                                                            device=device)
+        policy = policies.actor_policy_for_cell_blocks(
+            actor, spec, params, model_aware=extra.get("model_aware", True))
+        res = routed(torch, kernel, ops, mesh_router,
+                     lambda: mesh_router.route_batch_sharded(
+                         params, state, reqs, num_devices=1, policy=policy,
+                         chunk=CHUNK))
+        return res, policy.replays, cloud
+
+    (st, out, route_s, launches, calls, _), replays, actor_cloud = \
+        actor_route("cuda")
+    gpu = host_outputs(torch, st, out)
+    (cst, cout, cpu_s, _, cpu_calls, _), cpu_replays, _ = actor_route("cpu")
+    cpu = host_outputs(torch, cst, cout)
+    same_decisions(torch, gpu, cpu, "mesh_serve actor: card vs CPU",
+                   keys=("choice", "cause", "hit"))
+    lat_err = close_latency(torch, gpu, cpu, "mesh_serve actor")
+    rows = rows_of(calls)
+    check(launches == len(calls) and rows == rows_of(cpu_calls)
+          and replays == cpu_replays,
+          f"mesh_serve actor: {launches} launches, rows or replays differ "
+          "from the CPU")
+    launches_by["actor"] = launches
+    held["actor-block"] = calls[0]
+    emit({"phase": "mesh_serve", "cell": "actor-16x3-cloud", "devices": 1,
+          "policy": "actor_policy_for_cell_blocks", "chunk": CHUNK,
+          "route_s": route_s, "cpu_route_s": cpu_s,
+          "route_score_launches": launches,
+          "route_score_rows": {str(r): rows.count(r) for r in set(rows)},
+          "chunks_replayed": replays,
+          "cloud_fallback_rate": float((gpu["choice"] == actor_cloud)
+                                       .float().mean()),
+          "max_abs_latency_diff_vs_cpu": lat_err,
+          "decisions_equal_cpu": True})
+
+    # 5. route_score at the shapes the blocks handed it, +inf rows included
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, args in held.items():
+        plan = kernel.plan(args["prompt_bits"].shape[0],
+                           args["uplink_bps"].shape[0], torch.float32, sms)
+        res = score_case(torch, kernel, ref, f"mesh-{name}", "float32", args,
+                         "direct" if plan.direct else "staged")
+        got = kernel.route_score(**args)
+        check(not bool(torch.isnan(got).any()),
+              f"route_score mesh-{name}: NaN")
+        res["inf_rows"] = int(torch.isinf(args["prompt_bits"]).sum())
+        res["phase"] = "mesh_route_score"
+        emit(res)
+        held[name] = res
+
+    # 6. simulate by cell blocks: 16 windows of 256, card vs CPU
+    series, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        params, state, reqs, _ = setup(device)
+        t0 = time.perf_counter()
+        _, _, series[device] = workloads.simulate(
+            params, state, reqs, window_requests=SIM_WINDOW, chunk=CHUNK,
+            cloud_index=cloud, num_devices=1)
+        secs[device] = time.perf_counter() - t0
+    worst = same_series(np, series["cuda"], series["cpu"],
+                        "mesh_serve simulate")
+    emit({"phase": "mesh_serve", "cell": "cells-4x16-cloud",
+          "simulate": {"windows": len(series["cuda"].requests),
+                       "window_requests": SIM_WINDOW, "devices": 1},
+          "sim_s": secs["cuda"], "cpu_sim_s": secs["cpu"],
+          "max_rel_diff_vs_cpu": worst, "series_equal_cpu": True})
+
+    # 7. serve --mesh 1: the stats of the direct sharded route
+    served = serve_mod.serve(
+        num_requests=N_REQUESTS, n_servers=MESH_CELL["servers_per_cell"],
+        n_cells=MESH_CELL["n_cells"], drain_rate=MESH_CELL["drain_rate"],
+        scenario=MESH_CELL["scenario"], gen_tokens=MESH_CELL["gen_tokens"],
+        chunk=CHUNK, mesh=1, execute=False, device="cuda")
+    same = all(served[k] == v for k, v in direct_stats.items())
+    check(same, "mesh_serve: serve(mesh=1) stats differ from the direct "
+          "sharded route")
+    emit({"phase": "mesh_serve", "cell": "cells-4x16-cloud",
+          "serve": "mesh=1", "route_s": served["route_s"],
+          "stats_equal_direct_route": same})
+    return launches_by, held
 
 
 def phase_evaluate(torch, evaluate, p, cfg, ts):
@@ -1754,7 +2090,7 @@ def main():
     import torch.nn.functional as F
     from repro_torch import configs, workloads
     from repro_torch.core import (batch_router, env, evaluate, maddpg,
-                                  networks, policies)
+                                  mesh_router, networks, policies)
     from repro_torch.core.catalog import build_catalog, env_params_from_catalog
     from repro_torch.kernels import (cuda_build, flash_attention, flash_decode,
                                      ops, ref, rmsnorm, ssd_scan)
@@ -1791,6 +2127,11 @@ def main():
             catalog, ckpt)
         phase_simulate(np, torch, batch_router, policies, serve_mod,
                        workloads, catalog, ckpt)
+        t_mesh = time.perf_counter()
+        mesh_launches, mesh_cases = phase_mesh_serve(
+            np, torch, kernel, ref, ops, batch_router, mesh_router, policies,
+            serve_mod, workloads, catalog, ckpt)
+        mesh_s = time.perf_counter() - t_mesh
     phase_evaluate(torch, evaluate, p, cfg, ts)
     t_train = time.perf_counter()
     grad_cases = train_grad_cases(configs)
@@ -1806,18 +2147,21 @@ def main():
     t_end = time.perf_counter()
     emit({"phase": "timing", "total_s": t_end - t_start,
           "lm_phases_s": t_actor - t_lm, "actor_phases_s": t_train - t_actor,
+          "mesh_phase_s": mesh_s,
           "train_phases_s": t_end - t_train})
     main = scores[("main-path-base", "float32")]
     floor = scores[("launch-floor", "float32")]
-    err = max(r["max_abs_err"] for (case, dt), r in scores.items()
-              if dt != "bfloat16" and case != "launch-floor")
+    err = max([r["max_abs_err"] for (case, dt), r in scores.items()
+               if dt != "bfloat16" and case != "launch-floor"]
+              + [r["max_abs_err"] for r in mesh_cases.values()])
     csrc, pallas = "src/repro_torch/kernels/csrc", "src/repro/kernels"
     emit({"kernels": [{
         "name": "route_score", "route": "cuda",
         "source": f"{csrc}/route_score.cu",
         "replaces": f"{pallas}/route_score.py:212",
         "launches": main_launches,
-        "launches_actor_serve": actor_launches, "max_abs_err": err,
+        "launches_actor_serve": actor_launches,
+        "launches_mesh_serve": mesh_launches, "max_abs_err": err,
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
@@ -1830,6 +2174,10 @@ def main():
         "above_floor_ms": floor["main_path_above_floor_ms"],
         "launches_train_full": {arch: n["route_score"]
                                 for arch, n in train_launches.items()},
+        "mesh_blocks": [{k: r[k] for k in (
+            "case", "shape", "inf_rows", "bitwise", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by")}
+            for r in mesh_cases.values()],
     }] + [
         kernel_entry(name, f"{csrc}/{src}.cu", f"{pallas}/{src}.py:{line}",
                      exec_launches[name], lm_results, full_launches, grads,

@@ -234,6 +234,148 @@ def fleet_from_servers(servers, catalog, clock: int = 0, time_s: float = 0.0,
 
 
 # ---------------------------------------------------------------------------
+# cell-major layout
+# ---------------------------------------------------------------------------
+class CellLayout(NamedTuple):
+    """Block shape of a CELL-MAJOR fleet: edge cells ``0..C-1`` as
+    equal-size contiguous server blocks, every ``CLOUD_CELL`` column
+    trailing (what ``launch.serve.make_multicell_fleet`` builds). Each
+    cell's slice of the fleet is one contiguous block, which is what
+    ``core.mesh_router`` routes block by block."""
+
+    num_cells: int   # C edge cells
+    per_cell: int    # n servers in every edge cell block
+    num_cloud: int   # trailing CLOUD_CELL servers (shared, fleet-wide)
+
+    @property
+    def num_edge(self) -> int:
+        return self.num_cells * self.per_cell
+
+    @property
+    def num_servers(self) -> int:
+        return self.num_edge + self.num_cloud
+
+
+def cell_major_order(cell) -> np.ndarray:
+    """Server permutation into cell-major order: edge cells ascending
+    (each keeping its internal order, so per-cell LRU tie-breaks are
+    preserved), all ``CLOUD_CELL`` servers last. ``order[i]`` is the OLD
+    index landing at new position ``i`` (numpy argsort convention)."""
+    if isinstance(cell, torch.Tensor):
+        cell = cell.cpu().numpy()
+    cell = np.asarray(cell)
+    key = np.where(cell == CLOUD_CELL, np.iinfo(np.int64).max,
+                   cell.astype(np.int64))
+    return np.argsort(key, kind="stable")
+
+
+def cell_layout(params: FleetParams) -> CellLayout:
+    """Validate that ``params`` is cell-major and return its block shape.
+
+    Edge cell ids must be exactly ``0..C-1``, every cell must own the
+    same number of servers in one contiguous ascending block, and all
+    ``CLOUD_CELL`` servers must trail the edge blocks; ``ValueError``
+    otherwise (``cell_major_order``/``permute_fleet`` fix the order;
+    unequal cells need the fleet padded). An untopologied fleet
+    (``params.cell is None``) is one cell with no cloud."""
+    if params.cell is None:
+        return CellLayout(num_cells=1,
+                          per_cell=int(params.flops_per_s.shape[0]),
+                          num_cloud=0)
+    cell = params.cell.cpu().numpy()
+    n_total = int(cell.shape[0])
+    is_cloud = cell == CLOUD_CELL
+    num_cloud = int(is_cloud.sum())
+    if num_cloud and not is_cloud[n_total - num_cloud:].all():
+        raise ValueError(
+            "fleet is not cell-major: CLOUD_CELL servers must trail the "
+            "edge blocks (apply cell_major_order/permute_fleet)"
+        )
+    edge = cell[: n_total - num_cloud]
+    if edge.size == 0:
+        raise ValueError("fleet has no edge servers")
+    c = int(edge.max()) + 1
+    counts = np.bincount(edge, minlength=c) if edge.min() >= 0 else None
+    if counts is None or (counts == 0).any():
+        raise ValueError(
+            f"edge cell ids must be exactly 0..C-1, got "
+            f"{sorted(set(edge.tolist()))}"
+        )
+    if not (counts == counts[0]).all():
+        raise ValueError(
+            "cells must be equal-sized for the blocked layout, got "
+            f"per-cell counts {counts.tolist()}; pad the fleet"
+        )
+    per = int(counts[0])
+    if not np.array_equal(edge, np.repeat(np.arange(c), per)):
+        raise ValueError(
+            "edge servers are not grouped into contiguous ascending cell "
+            "blocks (apply cell_major_order/permute_fleet)"
+        )
+    return CellLayout(num_cells=c, per_cell=per, num_cloud=num_cloud)
+
+
+def permute_fleet(params: FleetParams, state: FleetState, order):
+    """Apply a server permutation to every per-server tensor of
+    ``(params, state)``, e.g. ``cell_major_order(params.cell)``. Choices
+    against the permuted fleet map back through ``order[choice]``.
+    Per-CELL tensors (``spill``) ride through unchanged."""
+    order = torch.as_tensor(np.asarray(order), dtype=torch.long,
+                            device=params.flops_per_s.device)
+
+    def take(x):
+        return None if x is None else x[order]
+
+    new_params = params._replace(
+        flops_per_s=take(params.flops_per_s),
+        uplink_bps=take(params.uplink_bps),
+        backhaul_bps=take(params.backhaul_bps),
+        cache_slots=take(params.cache_slots),
+        cell=take(params.cell),
+        drain_rate=take(params.drain_rate),
+    )
+    new_state = state._replace(
+        resident=take(state.resident),
+        last_use=take(state.last_use),
+        queue_tokens=take(state.queue_tokens),
+    )
+    return new_params, new_state
+
+
+def local_block_params(params: FleetParams, layout: CellLayout,
+                       block: int = 0) -> FleetParams:
+    """One cell block's LOCAL fleet view: its ``per_cell`` edge servers
+    relabelled cell 0, plus the shared cloud columns (cell stays
+    ``CLOUD_CELL``). Every block shares this geometry, so a policy built
+    on block 0 (``core.policies.actor_policy_for_cell_blocks``) serves
+    every cell under ``core.mesh_router.route_batch_sharded``."""
+    c, n, nc = layout.num_cells, layout.per_cell, layout.num_cloud
+    lo, hi = block * n, (block + 1) * n
+    edge_total = c * n
+
+    def take(x):
+        if x is None:
+            return None
+        blk = x[lo:hi]
+        return torch.cat([blk, x[edge_total:edge_total + nc]]) if nc else blk
+
+    local_cell = torch.as_tensor(np.concatenate(
+        [np.zeros(n, np.int32), np.full(nc, CLOUD_CELL, np.int32)]
+    ), device=params.flops_per_s.device)
+    return params._replace(
+        flops_per_s=take(params.flops_per_s),
+        uplink_bps=take(params.uplink_bps),
+        backhaul_bps=take(params.backhaul_bps),
+        cache_slots=take(params.cache_slots),
+        cell=local_cell,
+        drain_rate=take(params.drain_rate),
+        # the local view relabels cells to {0, CLOUD_CELL}: the global
+        # adjacency means nothing here (spill fleets route replicated)
+        spill=None,
+    )
+
+
+# ---------------------------------------------------------------------------
 # vectorised scoring
 # ---------------------------------------------------------------------------
 def _static_costs(params: FleetParams, reqs: RequestBatch, eta=None):

@@ -59,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.checkpoint import checkpointer
+from repro_torch.core import batch_router as br
 from repro_torch.core import networks
 from repro_torch.core.router import CLOUD_CELL, ModelAwareRouter
 from repro_torch.core.types import MB_TO_BITS
@@ -238,6 +239,17 @@ def _fleet_geometry(spec: ObsSpec, fleet_params):
             torch.as_tensor(row_cells, device=dev))
 
 
+def _map_row(cells, index_map):
+    """The index-map row each request reads, as the reference's gather
+    takes it: a negative cell counts from the end, then the row index is
+    clamped. A cell with no row of its own (an orphan, or the mesh
+    router's padding cell -2) reads a row whose ``col_cell`` it fails,
+    so its compat row is all False."""
+    n_rows = index_map.shape[0]
+    c = cells.long()
+    return torch.where(c < 0, c + n_rows, c).clamp(0, n_rows - 1)
+
+
 def make_actor_policy(actor_params, spec: ObsSpec, fleet_params, *,
                       agent: int = 0, defaults: Optional[ObsDefaults] = None,
                       model_aware: bool = True):
@@ -262,10 +274,12 @@ def make_actor_policy(actor_params, spec: ObsSpec, fleet_params, *,
                      gen_tokens * flops_tok / prompt_bits, f_es, compat)
 
     def policy(lats, obs, queue, ctx):
-        c = 0 if ctx.cell is None else ctx.cell.long()
-        idx = index_map[c]                                   # (N,)
+        c = (torch.zeros((), dtype=torch.long, device=dev)
+             if ctx.cell is None else ctx.cell.long())
+        row = _map_row(c, index_map)
+        idx = index_map[row]                                 # (N,)
         # live residency of the tagged model, cell-masked like env.observe
-        compat = ctx.resident[idx] & (col_cell[c] == c)
+        compat = ctx.resident[idx] & (col_cell[row] == c)
         if not model_aware:  # MADDPG-NoModel never sees the compat map
             compat = torch.zeros_like(compat)
         o = obs_rows(ctx.model, ctx.prompt_bits, ctx.gen_tokens,
@@ -286,8 +300,9 @@ def make_actor_policy(actor_params, spec: ObsSpec, fleet_params, *,
         entry compat row and each single-bit flip, (c, V) choices."""
         cells = (torch.zeros_like(cctx.model) if cctx.cell is None
                  else cctx.cell)
-        idx = index_map[cells.long()]                        # (c, N)
-        cell_ok = col_cell[cells.long()] == cells[:, None]   # (c, N)
+        row = _map_row(cells, index_map)
+        idx = index_map[row]                                 # (c, N)
+        cell_ok = col_cell[row] == cells[:, None]            # (c, N)
         # chunk-entry residency of each request's tagged model
         entry = torch.gather(cctx.resident.T[cctx.model.long()], 1, idx) \
             & cell_ok
@@ -348,8 +363,9 @@ def actor_action_columns(actor_params, spec: ObsSpec, fleet_params, state,
 
     model = reqs.model
     cells = torch.zeros_like(model) if reqs.cell is None else reqs.cell
-    idx = index_map[cells.long()]                            # (B, N)
-    cell_ok = col_cell[cells.long()] == cells[:, None]       # (B, N)
+    row = _map_row(cells, index_map)
+    idx = index_map[row]                                     # (B, N)
+    cell_ok = col_cell[row] == cells[:, None]                # (B, N)
     compat = torch.gather(state.resident.T[model.long()], 1, idx) & cell_ok
     if not model_aware:
         compat = torch.zeros_like(compat)
@@ -434,12 +450,32 @@ def load_actor_policy(ckpt_dir, fleet_params, *, step: Optional[int] = None,
 
 def actor_policy_for_cell_blocks(actor_params, spec: ObsSpec, fleet_params,
                                  **kwargs):
-    """The mesh router's per-cell-block actor policy: not ported yet."""
-    raise NotImplementedError(
-        "actor_policy_for_cell_blocks serves the mesh router's cell blocks; "
-        "it comes with the mesh and distributed slice (ROADMAP Queue 1 "
-        "item 10)"
-    )
+    """The actor policy for ``core.mesh_router.route_batch_sharded``: ONE
+    policy that serves EVERY cell block.
+
+    Under the mesh each block's ``PolicyCtx`` carries a LOCAL view, one
+    cell's servers relabelled cell 0 plus the cloud columns, so the index
+    map is built on block 0's local geometry. The actor reads the fleet
+    only through the live context (residency, queues, speeds), so that
+    one policy, chunk hook included, is right for every equal-size block.
+
+    Requires a single-cell-trained actor (``spec.num_cells == 1``) whose
+    ``spec.num_ess`` is the fleet's per-cell block size; an actor trained
+    on all cells at once cannot be served from per-cell blocks."""
+    layout = br.cell_layout(fleet_params)
+    if spec.num_cells != 1:
+        raise ValueError(
+            f"sharded serving needs a single-cell-trained actor "
+            f"(spec.num_cells == 1, one index map shared by every block); "
+            f"got num_cells={spec.num_cells} — route this fleet unsharded"
+        )
+    if spec.num_ess != layout.per_cell:
+        raise ValueError(
+            f"actor was trained on num_ess={spec.num_ess} edge servers but "
+            f"the fleet's cell blocks hold {layout.per_cell}"
+        )
+    local = br.local_block_params(fleet_params, layout, 0)
+    return make_actor_policy(actor_params, spec, local, **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@
 deadline, for the launcher to re-dispatch their shard. It is host-side
 numpy, so it keeps working when the device stalls. The reference's
 elastic re-mesh (``shrink_mesh``, ``reshard_checkpoint_tree``) waits for
-the mesh slice (ROADMAP.md, Queue 1 item 10).
+the training mesh slice (ROADMAP.md, Queue 1 item 10).
 """
 from __future__ import annotations
 

@@ -23,6 +23,9 @@ prefilled and ``gen_tokens`` tokens decoded greedily through
 the SSD scan) run on the card. ``--policy actor:<ckpt_dir>`` serves a
 trained MADDPG-MATO actor restored from a checkpoint directory
 (``core.policies.save_actor_checkpoint``, which either package writes).
+``--mesh D`` routes the stream as one window of the mesh-sharded router
+(``core.mesh_router``: cell blocks over D devices, the cloud column
+reconciled at window close).
 
     python -m repro_torch.launch.serve --requests 32 --servers 3
     python -m repro_torch.launch.serve --requests 4096 --servers 64 \
@@ -32,6 +35,9 @@ trained MADDPG-MATO actor restored from a checkpoint directory
         --no-execute
     python -m repro_torch.launch.serve --requests 1024 --servers 3 \
         --policy actor:<ckpt_dir> --chunk 256 --no-execute
+    python -m repro_torch.launch.serve --requests 4096 --servers 16 \
+        --cells 4 --drain-rate 20000 --scenario slo-mix --chunk 256 \
+        --mesh 1 --no-execute
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, reduced
-from repro_torch.core import batch_router, policies
+from repro_torch.core import batch_router, mesh_router, policies
 from repro_torch.core.catalog import build_catalog
 from repro_torch.core.router import CLOUD_CELL, EdgeServer
 from repro_torch.device import resolve_device
@@ -100,11 +106,13 @@ def make_multicell_fleet(n_cells: int, servers_per_cell: int, catalog,
     return fleet
 
 
-def resolve_policy_flag(policy, fleet_params):
+def resolve_policy_flag(policy, fleet_params, *, sharded=False):
     """CLI policy flag -> ``route_batch`` policy. ``actor:<ckpt_dir>``
     restores a trained MADDPG-MATO actor through ``core.policies`` onto
     the fleet's device; everything else passes through (builtin name or
-    callable).
+    callable). ``sharded=True`` builds the actor on the cell-block-local
+    geometry (``policies.actor_policy_for_cell_blocks``), so the one
+    policy serves every block of ``route_batch_sharded``.
 
     Checkpoint problems surface as a clean ``SystemExit`` (missing dir,
     no committed step, corrupt manifest/arrays, wrong checkpoint kind)
@@ -117,7 +125,13 @@ def resolve_policy_flag(policy, fleet_params):
                 "--policy actor:benchmarks/results/actor_ckpt"
             )
         try:
-            return policies.load_actor_policy(ckpt, fleet_params)
+            if not sharded:
+                return policies.load_actor_policy(ckpt, fleet_params)
+            params, spec, extra = policies.load_actor_checkpoint(
+                ckpt, device=fleet_params.flops_per_s.device)
+            return policies.actor_policy_for_cell_blocks(
+                params, spec, fleet_params,
+                model_aware=extra.get("model_aware", True))
         except (FileNotFoundError, NotADirectoryError) as e:
             raise SystemExit(
                 f"serve: no actor checkpoint at {ckpt!r}: {e}\n"
@@ -133,6 +147,20 @@ def resolve_policy_flag(policy, fleet_params):
                 "(step_<N>/manifest.json + committed arrays)"
             ) from e
     return policy
+
+
+def validate_mesh_flag(mesh, device):
+    """Fail before any set-up when ``--mesh D`` asks for fewer than one
+    device, or for more devices of the chosen kind than this process
+    sees (the CUDA cards; on the CPU, one device)."""
+    if mesh is None:
+        return
+    device = torch.device(device)
+    avail = (torch.cuda.device_count() if device.type == "cuda" else 1)
+    if mesh < 1 or mesh > avail:
+        raise SystemExit(
+            f"serve: --mesh {mesh} needs {mesh} {device.type} devices but "
+            f"only {avail} are available")
 
 
 def _sync(device: torch.device):
@@ -163,7 +191,7 @@ def generate(cfg, params, n_gen: int, device):
 def serve(num_requests=32, n_servers=3, policy="greedy", execute=True, seed=0,
           gen_tokens=8, n_cells=1, drain_rate=0.0, arrival_rate=None,
           chunk=None, scenario="steady", device=None, speculative=True,
-          return_outcome=False):
+          return_outcome=False, mesh=None):
     """Route one scenario stream through the fleet; returns the stats dict
     (the JAX package's keys), or ``(stats, state, outcome)`` with
     ``return_outcome=True``.
@@ -172,8 +200,12 @@ def serve(num_requests=32, n_servers=3, policy="greedy", execute=True, seed=0,
     ``device="cpu"`` runs the plain PyTorch path. ``speculative=False``
     forces the chunked path's plain correction loop. ``execute=True``
     generates every routed request after the route (``generate``); that
-    time shows only in ``wall_s``, as in the reference."""
+    time shows only in ``wall_s``, as in the reference. ``mesh=D`` routes
+    the stream as ONE window of ``core.mesh_router.route_batch_sharded``
+    over D devices, which takes no per-request drain: the queues drain
+    only through ``drain_rate`` there."""
     device = resolve_device(device)
+    validate_mesh_flag(mesh, device)
     catalog = build_catalog(EDGE_ARCHS)
     multicell = n_cells > 1
     if multicell:
@@ -184,7 +216,8 @@ def serve(num_requests=32, n_servers=3, policy="greedy", execute=True, seed=0,
     # float32 throughout, the precision the JAX package serves in
     fleet_params, fleet_state = batch_router.fleet_from_servers(
         fleet, catalog, dtype=torch.float32, device=device)
-    policy = resolve_policy_flag(policy, fleet_params)
+    policy = resolve_policy_flag(policy, fleet_params,
+                                 sharded=mesh is not None)
 
     # local reduced models actually generate tokens for routed requests
     models = {}
@@ -207,17 +240,24 @@ def serve(num_requests=32, n_servers=3, policy="greedy", execute=True, seed=0,
 
     # with drain_rate > 0 the queues decay by drain_rate * dt between
     # arrivals; otherwise each routed request drains the fleet by the
-    # mean per-request share, like the reference's per-request loop
+    # mean per-request share, like the reference's per-request loop,
+    # except under a mesh, whose window takes no per-request drain
     drain_tokens = None
-    if drain_rate <= 0.0:
+    if drain_rate <= 0.0 and mesh is None:
         drain_tokens = (float(np.mean(reqs.gen_tokens.cpu().numpy()))
                         * len(fleet) / max(num_requests, 1))
     _sync(device)
     t0 = time.perf_counter()
-    fleet_state, out = batch_router.route_batch(
-        fleet_params, fleet_state, reqs, drain_tokens,
-        policy=policy, chunk=chunk, speculative=speculative,
-    )
+    if mesh is not None:
+        fleet_state, out = mesh_router.route_batch_sharded(
+            fleet_params, fleet_state, reqs, num_devices=mesh,
+            policy=policy, chunk=chunk, speculative=speculative,
+        )
+    else:
+        fleet_state, out = batch_router.route_batch(
+            fleet_params, fleet_state, reqs, drain_tokens,
+            policy=policy, chunk=chunk, speculative=speculative,
+        )
     _sync(device)
     route_s = time.perf_counter() - t0
 
@@ -272,6 +312,9 @@ def main(argv=None):
                          "path; 256 at fleet scale)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="device to route on (default: the CUDA card)")
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="route by cell blocks over D devices "
+                         "(core.mesh_router; no per-request drain)")
     ap.add_argument("--no-execute", action="store_true",
                     help="route only (no local generation)")
     args = ap.parse_args(argv)
@@ -280,7 +323,7 @@ def main(argv=None):
                   gen_tokens=args.gen_tokens if args.gen_tokens > 0 else None,
                   n_cells=args.cells, drain_rate=args.drain_rate,
                   arrival_rate=args.arrival_rate, chunk=args.chunk,
-                  scenario=args.scenario, device=args.device)
+                  scenario=args.scenario, device=args.device, mesh=args.mesh)
     for k, v in stats.items():
         print(f"{k}: {v}")
 

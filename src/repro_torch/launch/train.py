@@ -10,8 +10,8 @@ One entry point for all ten archs:
 It runs on the CUDA card unless ``--device`` names another. Checkpoints
 hold ``(params, opt_state)`` in the JAX package's layout (layer-stacked
 tree, ``OptState`` with an int32 ``step``), so a run of either package
-resumes from the other's. ``--mesh single|multi`` waits for the mesh
-slice (ROADMAP.md, Queue 1 item 10).
+resumes from the other's. ``--mesh single|multi`` waits for the
+training mesh slice (ROADMAP.md, Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -30,8 +30,8 @@ from repro_torch.models import convert, lm
 from repro_torch.models.train import make_train_step, named_params
 from repro_torch.optim.adamw import OptState
 
-MESH = ("--mesh single|multi (a production mesh) waits for the mesh slice "
-        "(ROADMAP.md, Queue 1 item 10); use --mesh host")
+MESH = ("--mesh single|multi (a production mesh) waits for the training "
+        "mesh slice (ROADMAP.md, Queue 1 item 10); use --mesh host")
 
 
 def checkpoint_tree(params, opt_state: OptState):

@@ -21,8 +21,8 @@ in the order of its top-k slots. Three expert paths, as in the reference:
 Every path gathers (no scatter with duplicate indices), so the result is
 the same from run to run on the card. The expert products are plain
 ``torch`` matrix products, as the reference leaves them to XLA.
-``moe_apply`` with a mesh and the expert-parallel body wait for the mesh
-slice (ROADMAP.md, Queue 1 item 10).
+``moe_apply`` with a mesh and the expert-parallel body wait for the
+training mesh slice (ROADMAP.md, Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import dtype_of, param
 
 MESH = ("moe_apply over a mesh and its expert-parallel body wait for the "
-        "mesh slice (ROADMAP.md, Queue 1 item 10)")
+        "training mesh slice (ROADMAP.md, Queue 1 item 10)")
 
 
 class MoE(nn.Module):

@@ -10,9 +10,8 @@
     ``core.batch_router.RequestBatch`` on a named device.
   * :mod:`repro_torch.workloads.simulate` — the long-horizon episode
     runner: windows a stream into ``route_batch`` calls, carries the
-    ``FleetState`` across windows and aggregates per-window series. Its
-    mesh-sharded windows (``mesh=``/``num_devices=``) come with ROADMAP
-    Queue 1 item 10.
+    ``FleetState`` across windows and aggregates per-window series, on
+    one device or by cell blocks over a mesh (``mesh=``/``num_devices=``).
 """
 from repro_torch.workloads.scenario import (  # noqa: F401
     FaultSpec,

@@ -11,7 +11,8 @@ plus queue-depth percentiles sampled at every window boundary.
 Because requests commit strictly in stream order, windowing is a pure
 re-chunking: for a drain-free stream the W-window episode equals ONE
 ``route_batch`` call on the whole stream (choices, latencies, final
-state).
+state). ``mesh=``/``num_devices=`` route each window by cell blocks
+(``core.mesh_router``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import batch_router as br
-from repro_torch.core import costs
+from repro_torch.core import costs, mesh_router
 
 
 def _host(x):
@@ -130,12 +131,20 @@ def simulate(params: br.FleetParams, state: br.FleetState,
     queue percentiles. ``faults`` (a ``workloads.scenario.FaultSpec``)
     routes each window under the fault masks active at its FIRST
     arrival: ``outages`` become the router's ``outage`` mask,
-    ``drain_outages`` zero the affected servers' ``drain_rate``."""
-    if mesh is not None or num_devices is not None:
-        raise NotImplementedError(
-            "simulate(mesh=/num_devices=) routes through the mesh-sharded "
-            "router, which comes with the mesh and distributed slice "
-            "(ROADMAP Queue 1 item 10)"
+    ``drain_outages`` zero the affected servers' ``drain_rate``.
+
+    ``mesh``/``num_devices`` route each window through the mesh-sharded
+    router (``core.mesh_router.route_batch_sharded``): a simulator window
+    is the sharded router's reconciliation window, so cells see each
+    other's cloud commits at the boundaries the series samples. They
+    exclude ``drain_tokens``, a fleet-wide coupling of every request to
+    the one before it."""
+    sharded = mesh is not None or num_devices is not None
+    if sharded and drain_tokens is not None:
+        raise ValueError(
+            "drain_tokens couples every request to the previous one "
+            "fleet-wide; the mesh-sharded windows cannot honour it — "
+            "drop the mesh or use params.drain_rate time-based drain"
         )
     n_srv = int(params.flops_per_s.shape[0])
     if faults is not None and (faults.outages or faults.drain_outages):
@@ -179,9 +188,16 @@ def simulate(params: br.FleetParams, state: br.FleetState,
             if dm.any():  # stalled drain: still routable, backlog grows
                 params_w = params._replace(drain_rate=torch.where(
                     torch.as_tensor(dm, device=dev), 0.0, params.drain_rate))
-        state, out = br.route_batch(params_w, state, win, dw, policy=policy,
-                                    actor=actor, chunk=chunk,
-                                    speculative=speculative, outage=outage)
+        if sharded:
+            state, out = mesh_router.route_batch_sharded(
+                params_w, state, win, mesh=mesh, num_devices=num_devices,
+                policy=policy, actor=actor, chunk=chunk,
+                speculative=speculative, outage=outage)
+        else:
+            state, out = br.route_batch(params_w, state, win, dw,
+                                        policy=policy, actor=actor,
+                                        chunk=chunk, speculative=speculative,
+                                        outage=outage)
         outs.append(out)
         q = _host(state.queue_tokens)
         if cloud_index is not None:

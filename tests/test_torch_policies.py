@@ -338,6 +338,22 @@ def test_drain_corrected_latencies_match_reference():
                                        [req(Request, 0)], [-1])
 
 
-def test_cell_block_policy_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tpol.actor_policy_for_cell_blocks(None, SPEC, None)
+def test_cell_block_policy_names_its_roadmap_item(ckpt):
+    """The mesh router's block-local actor is ported: on a 3 x 3 fleet it
+    is the hooked actor policy of block 0's local geometry, and a block
+    size the actor was not trained on is refused as the reference
+    refuses it."""
+    params, _ = tbr.fleet_from_servers(_fleet(), CATALOG, device="cpu")
+    actor, spec, _ = tpol.load_actor_checkpoint(ckpt, device="cpu")
+    policy = tpol.actor_policy_for_cell_blocks(actor, spec, params)
+    assert policy.needs_ctx and callable(policy.chunk_precompute)
+    wide = tserve.make_multicell_fleet(3, 4, REF_CATALOG)
+    with pytest.raises(ValueError, match="cell blocks hold 4") as got:
+        tpol.actor_policy_for_cell_blocks(
+            actor, spec, tbr.fleet_from_servers(wide, CATALOG,
+                                                device="cpu")[0])
+    with pytest.raises(ValueError, match="cell blocks hold 4") as ref:
+        rpol.actor_policy_for_cell_blocks(
+            rpol.load_actor_checkpoint(ckpt)[0], rpol.ObsSpec(*spec),
+            rbr.fleet_from_servers(wide, REF_CATALOG)[0])
+    assert str(got.value) == str(ref.value)

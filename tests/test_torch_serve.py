@@ -172,14 +172,15 @@ def test_generate_matches_the_reference_loop(arch):
 
 
 def test_unported_parts_say_which_slice_brings_them(tmp_path):
-    """What is still unported names its ROADMAP item; an actor
-    checkpoint that is not there exits with the reference's message."""
-    from repro_torch.core import policies
-    from repro_torch.workloads import simulate
+    """What is still unported (the training mesh) names its ROADMAP
+    item; an actor checkpoint that is not there exits with the
+    reference's message."""
+    from repro_torch.launch import train
+    from repro_torch.models import moe
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        policies.actor_policy_for_cell_blocks(None, None, None)
+        moe.moe_apply_ep_local(None, None, None)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        simulate(None, None, None, mesh=object())
+        train.train("smollm_135m", mesh_kind="multi", device="cpu")
     for bad in ("actor:" + str(tmp_path / "missing"), "actor:"):
         with pytest.raises(SystemExit) as port_exit:
             tserve.serve(num_requests=8, execute=False, device="cpu",

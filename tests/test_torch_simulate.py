@@ -195,8 +195,8 @@ def test_simulate_checks_its_inputs():
     params, state = tbr.fleet_from_servers(fleet, CATALOG, device="cpu")
     reqs = compile_scenario(get_scenario("steady", num_requests=16), seed=0,
                             num_models=4, num_cells=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        simulate(params, state, reqs, num_devices=2)
+    with pytest.raises(ValueError, match="drain_tokens couples"):
+        simulate(params, state, reqs, drain_tokens=1.0, num_devices=2)
     with pytest.raises(ValueError, match="fleet has 5 servers"):
         simulate(params, state, reqs,
                  faults=FaultSpec(outages=((7, 0.0, 1.0),)))
