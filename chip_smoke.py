@@ -130,7 +130,24 @@ Phases, one JSON line each (after the card's name and power limit):
     share, heaviest kernels) and one more with each of its parts
     (forward, backward, optimizer) profiled through the step's ``part``
     hook. Recorded, not held;
-18. a ``kernels`` line with each kernel's launches on its main path (the
+18. ``train_mesh``: the training mesh at a world of 1, a ``nccl``
+    process group started for the phase and torn down after it, the host
+    mesh (1, 1) bound to it: the ``train_parity`` archs' reduced
+    smollm-135m, mamba2-2.7b, mixtral (the tensor-parallel expert body)
+    and qwen3-moe (the expert-parallel one), 3 steps through
+    ``make_train_step(cfg, mesh=)`` against the mesh-free step on the
+    card: bit for bit where a world of 1 changes no arithmetic (within
+    ``PARITY_TOL`` on the MoE archs), the body taken, the same kernel
+    launches a step; ``TRAIN_FULL``'s two archs through the mesh step
+    beside the mesh-free step in turns (free, mesh, mesh, free; each
+    block a fresh model, ``TRAIN_WARMUP`` + ``TRAIN_MESH_BLOCK`` steps):
+    tokens/s, the median step, peak memory, the launches of one step
+    (counts set to 0 just before and read just after: the path of this
+    phase), one step profiled; ``compressed_psum`` against its plain
+    round trip and within the reference's bound, and its time at
+    smollm-135m's embedding-gradient size; ``make_production_mesh()``
+    raising on one card;
+19. a ``kernels`` line with each kernel's launches on its main path (the
     fleet-scale speculative serve for ``route_score``, and its launches
     on the actor and mesh paths beside them, with the mesh blocks'
     cases; execute-serving for the others, and
@@ -139,8 +156,8 @@ Phases, one JSON line each (after the card's name and power limit):
     the library call's time and its bound, and beside them the same
     numbers at each full-width arch's bf16 case (``FULL_CASE``), the
     training cases' forward and backward times and each kernel's
-    launches in one ``train_full`` step;
-19. the last line, ``{"ok": true, "device": {...}}``.
+    launches in one ``train_full`` step and one ``train_mesh`` step;
+20. the last line, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32: TF32 is off for cuBLAS and
 cuDNN. Any failed check exits non-zero; without a card, or outside a
@@ -211,6 +228,9 @@ TRAIN_HEAD112 = ("zamba2_7b", 4, 512)  # head size 112; no train_full run
 ACTOR_FLEET = dict(n_cells=16, servers_per_cell=3, drain_rate=20000.0)
 ACTOR_STREAM = dict(scenario="hotspot-cell", num_requests=N_REQUESTS)
 SIM_WINDOW, EVAL_EPISODES = 256, 32
+TRAIN_MESH_PARITY = {"smollm_135m": None, "mamba2_2p7b": None,  # MoE body
+                     "mixtral_8x7b": "tp", "qwen3_moe_235b_a22b": "ep"}
+TRAIN_MESH_BLOCK = 10               # timed steps a block; two blocks a variant
 MESH_CELL = dict(n_cells=4, servers_per_cell=16, drain_rate=20000.0,
                  scenario="slo-mix", gen_tokens=8)  # the README's cells form
 
@@ -2041,13 +2061,268 @@ def phase_train_full(np, torch, configs, lm, train_mod, pipeline, counters,
     return launches_by
 
 
+@contextlib.contextmanager
+def moe_bodies(moe):
+    """Counts the calls of the two MoE shard bodies while it is open."""
+    seen = {"tp": 0, "ep": 0}
+    tp, ep = moe.moe_apply_local, moe.moe_apply_ep_local
+
+    def counted(name, fn):
+        def wrapped(*args, **kwargs):
+            seen[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    moe.moe_apply_local = counted("tp", tp)
+    moe.moe_apply_ep_local = counted("ep", ep)
+    try:
+        yield seen
+    finally:
+        moe.moe_apply_local, moe.moe_apply_ep_local = tp, ep
+
+
+def mesh_parity(torch, configs, lm, moe, train_mod, pipeline, counters, mesh,
+                dev="cuda"):
+    """TRAIN_MESH_PARITY: each arch at reduced(), the same weights, 3 steps
+    through ``make_train_step(cfg, mesh=mesh)`` and through the mesh-free
+    step on ``dev``: the largest loss, grad norm and parameter difference
+    (bit for bit where a world of 1 changes no arithmetic; within
+    PARITY_TOL on the MoE archs), the MoE body the mesh step took, and
+    the kernel launches of its first step (counts set to 0 just before,
+    read just after)."""
+    out = {}
+    for arch, body in TRAIN_MESH_PARITY.items():
+        cfg = configs.reduced(configs.get_arch(arch))
+        base = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        runs = {}
+        for name, m in (("free", None), ("mesh", mesh)):
+            params = copy.deepcopy(base).requires_grad_(True)
+            opt_init, step_fn = train_mod.make_train_step(cfg, mesh=m)
+            opt = opt_init(params)
+            dc = pipeline.DataConfig(seq_len=TRAIN_PARITY["seq"],
+                                     global_batch=TRAIN_PARITY["batch"],
+                                     vocab=cfg.vocab)
+            metrics, launches = [], None
+            with moe_bodies(moe) as seen:
+                for s in range(TRAIN_PARITY["steps"]):
+                    zero_counts(counters)
+                    params, opt, mt = step_fn(params, opt,
+                                              pipeline.synthetic_batch(
+                                                  cfg, dc, s, device=dev))
+                    metrics.append((float(mt["loss"]), float(mt["grad_norm"])))
+                    launches = launches or read_counts(counters)
+            runs[name] = (metrics, dict(train_mod.unshard(params)
+                                        .named_parameters()), launches, seen)
+        free, meshed = runs["free"], runs["mesh"]
+        loss_diff = max(abs(a[0] - b[0]) for a, b in zip(meshed[0], free[0]))
+        gnorm_diff = max(abs(a[1] - b[1]) for a, b in zip(meshed[0], free[0]))
+        param_diff = max(float((p.detach() - free[1][k].detach()).abs().max())
+                         for k, p in meshed[1].items())
+        bitwise = meshed[0] == free[0] and all(
+            torch.equal(p, free[1][k]) for k, p in meshed[1].items())
+        out[arch] = {"arch": arch, "body": body, "steps": TRAIN_PARITY["steps"],
+                     "batch": TRAIN_PARITY["batch"],
+                     "seq": TRAIN_PARITY["seq"],
+                     "loss_mesh": [m[0] for m in meshed[0]],
+                     "loss_free": [m[0] for m in free[0]],
+                     "max_loss_diff": loss_diff,
+                     "max_grad_norm_diff": gnorm_diff,
+                     "max_param_abs_diff": param_diff, "bitwise": bitwise,
+                     "bodies_taken": meshed[3], "launches_mesh": meshed[2],
+                     "launches_free": free[2]}
+        check(bitwise or (body is not None and loss_diff <= PARITY_TOL
+                          and param_diff <= PARITY_TOL),
+              f"train_mesh {arch}: mesh step off the mesh-free step by loss "
+              f"{loss_diff}, params {param_diff}")
+        check(body is None or meshed[3][body] > 0,
+              f"train_mesh {arch}: the {body} body was not taken "
+              f"({meshed[3]})")
+        check(meshed[2] == free[2], f"train_mesh {arch}: launches {meshed[2]}"
+              f" a mesh step, {free[2]} a mesh-free step")
+        for k in needed_kernels(cfg):
+            check(meshed[2][k] > 0, f"train_mesh {arch}: {k} never launched")
+    return out
+
+
+def block_bound(torch, compression, got, x):
+    """Whether every element of ``got`` is within half its block's
+    quantisation step (absmax / 254, with float32 slack) of ``x``."""
+    _, scale, (_, n) = compression.compress(x)
+    err = (got.float() - x.float()).reshape(-1)
+    err = torch.cat([err, err.new_zeros(scale.shape[0] * compression.BLOCK
+                                        - n)])
+    slack = 1e-7 * float(x.float().abs().max())
+    return bool((err.reshape(scale.shape[0], -1).abs()
+                 <= 0.5 * scale * (1 + 1e-6) + slack).all())
+
+
+def mesh_psum(torch, compression, dev="cuda"):
+    """``compressed_psum`` at a world of 1 against its plain
+    ``decompress(compress(x))`` (bit for bit: one rank's term) and x: the
+    reference's bound (atol = rtol = 0.02, its N(0, 1) test's size) on
+    the small inputs, and half a quantisation step a block on smollm-135m's
+    embedding-gradient size (49152 x 576), where it also times the call
+    beside the plain round trip (median of five)."""
+    out = []
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for n, dtype in ((1000, torch.float32), (4097, torch.bfloat16),
+                     (49152 * 576, torch.float32)):
+        x = torch.randn(n, generator=gen, device=dev).to(dtype)
+        got = compression.compressed_psum(x)
+        plain = compression.decompress(*compression.compress(x), dtype=dtype)
+        large = n > 10**6
+        row = {"n": n, "dtype": str(dtype).split(".")[-1],
+               "bitwise_plain": bool(torch.equal(got, plain)),
+               "max_abs_err_vs_x": float((got.float() - x.float()).abs()
+                                         .max()),
+               "bound": "half a step a block" if large else "atol=rtol=0.02",
+               "within_bound": block_bound(torch, compression, got, x) if large
+               else bool(torch.allclose(got.float(), x.float(), atol=0.02,
+                                        rtol=0.02))}
+        if large and dev == "cuda":
+            row["ms"] = call_ms(torch, lambda: compression.compressed_psum(x),
+                                3)
+            row["plain_ms"] = call_ms(torch, lambda: compression.decompress(
+                *compression.compress(x)), 3)
+        out.append(row)
+        check(row["bitwise_plain"] and row["within_bound"],
+              f"train_mesh compressed_psum {row}")
+    return out
+
+
+def mesh_full(torch, configs, lm, train_mod, pipeline, counters, mesh,
+              dev="cuda"):
+    """TRAIN_FULL's two archs (published widths, depth cut as there, bf16,
+    remat and grad_accum as configured) through the mesh step beside the
+    mesh-free step, in turns (free, mesh, mesh, free): each block builds
+    its model on the card from seed 0, takes TRAIN_WARMUP steps, then
+    TRAIN_MESH_BLOCK timed steps (host clock, each ending in a loss read),
+    the peak memory of the block, the kernel launches of one step (counts
+    set to 0 just before, read just after; first block of each), one step
+    under the profiler and one with its parts profiled (``step_in_parts``:
+    the mesh step's "gather" beside the forward, backward and optimizer;
+    the second block of each)."""
+    out = {}
+    for arch, (overrides, batch, seq) in TRAIN_FULL.items():
+        cfg = configs.get_arch(arch, **overrides)
+        dc = pipeline.DataConfig(seq_len=seq, global_batch=batch,
+                                 vocab=cfg.vocab)
+        res = {v: {"step_ms": [], "peak_gb": 0.0} for v in ("free", "mesh")}
+        for variant in ("free", "mesh", "mesh", "free"):
+            torch.cuda.empty_cache()
+            params = lm.init_params(torch.Generator(device=dev)
+                                    .manual_seed(0), cfg).requires_grad_(True)
+            opt_init, step_fn = train_mod.make_train_step(
+                cfg, mesh=mesh if variant == "mesh" else None)
+            # the block's only references: a name left on the first
+            # optimizer state would hold a second set of moments
+            state = {"params": params, "opt": opt_init(params), "step": 0}
+            del params
+
+            def one():
+                state["params"], state["opt"], m = step_fn(
+                    state["params"], state["opt"], pipeline.synthetic_batch(
+                        cfg, dc, state["step"], device=dev))
+                state["step"] += 1
+                loss = float(m["loss"])   # waits for the step
+                check(math.isfinite(loss), f"train_mesh {arch} {variant}: "
+                      "non-finite loss")
+                return loss
+
+            for _ in range(TRAIN_WARMUP):
+                one()
+            r = res[variant]
+            if "launches" not in r:
+                torch.cuda.synchronize()
+                zero_counts(counters)
+                one()
+                r["launches"] = read_counts(counters)
+            else:
+                r["step_profile"] = profile_once(torch, one)
+                state["params"], state["opt"], r["step_split"] = \
+                    step_in_parts(torch, step_fn, state["params"],
+                                  state["opt"], pipeline.synthetic_batch(
+                                      cfg, dc, state["step"], device=dev))
+                state["step"] += 1
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(TRAIN_MESH_BLOCK):
+                t0 = time.perf_counter()
+                r["loss_last"] = one()
+                r["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            r["peak_gb"] = max(r["peak_gb"],
+                               torch.cuda.max_memory_allocated() / 2**30)
+            state.clear()
+        for r in res.values():
+            r["train_tok_s"] = len(r["step_ms"]) * batch * seq / (
+                sum(r["step_ms"]) / 1e3)
+            r["median_step_ms"] = statistics.median(r["step_ms"])
+        for k in needed_kernels(cfg):
+            check(res["mesh"]["launches"][k] > 0,
+                  f"train_mesh {arch}: {k} never launched a mesh step")
+        check(res["mesh"]["launches"] == res["free"]["launches"],
+              f"train_mesh {arch}: launches a step {res['mesh']['launches']}"
+              f" through the mesh, {res['free']['launches']} without")
+        out[arch] = {"arch": arch, "dtype": cfg.param_dtype,
+                     "remat": cfg.remat, "grad_accum": cfg.grad_accum,
+                     "layers": cfg.num_layers, "batch": batch, "seq": seq,
+                     "warmup_steps": TRAIN_WARMUP,
+                     "timed_steps_a_variant": 2 * TRAIN_MESH_BLOCK, **{
+                         f"{v}_{k}": r[k] for v, r in res.items()
+                         for k in ("train_tok_s", "median_step_ms", "peak_gb",
+                                   "launches", "step_ms", "step_profile",
+                                   "step_split", "loss_last")}}
+    return out
+
+
+def phase_train_mesh(torch, configs, lm, moe, train_mod, pipeline, counters,
+                     launch_mesh, sharding, compression):
+    """The training mesh at a world of 1: a ``nccl`` process group started
+    for the phase and torn down after it (behind a barrier), the host
+    mesh (1, 1) bound to it; ``mesh_parity``, ``mesh_full``,
+    ``mesh_psum``, and ``make_production_mesh()`` raising (one rank where
+    256 are needed). Returns each full-width arch's launches a mesh
+    step."""
+    t0 = time.perf_counter()
+    with launch_mesh.process_group("cuda"):
+        mesh = sharding.bind(launch_mesh.make_host_mesh())
+        check(mesh.shape == {"data": 1, "model": 1},
+              f"train_mesh: host mesh {mesh.shape} on one card")
+        for row in mesh_parity(torch, configs, lm, moe, train_mod, pipeline,
+                               counters, mesh).values():
+            emit({"phase": "train_mesh", "case": "parity", **row})
+        full = mesh_full(torch, configs, lm, train_mod, pipeline, counters,
+                         mesh)
+        for row in full.values():
+            emit({"phase": "train_mesh", "case": "full_width", **row})
+        emit({"phase": "train_mesh", "case": "compressed_psum",
+              "runs": mesh_psum(torch, compression)})
+        try:
+            launch_mesh.make_production_mesh()
+        except RuntimeError as e:
+            raised = str(e)
+        else:
+            raised = None
+        check(raised is not None and "needs 256 devices, found 1" in raised,
+              f"train_mesh: make_production_mesh() gave {raised!r}")
+        emit({"phase": "train_mesh", "case": "production_mesh",
+              "raised": raised, "world": torch.distributed.get_world_size(),
+              "backend": torch.distributed.get_backend()})
+    check(not torch.distributed.is_initialized(),
+          "train_mesh: the process group outlived the phase")
+    emit({"phase": "train_mesh", "case": "timing",
+          "seconds": time.perf_counter() - t0})
+    return {arch: r["mesh_launches"] for arch, r in full.items()}
+
+
 def kernel_entry(name, source, replaces, launches, results, full_launches,
-                 grads, train_launches):
+                 grads, train_launches, mesh_launches):
     """The ``kernels`` line's entry: execute-serving's case for the times,
     the largest float32 and bf16 errors over all cases, the full-width bf16
     cases ``FULL_CASE[name]`` beside it, the launches of each full-width
-    arch's run, the training cases (forward kernel and backward a call)
-    and the launches of one ``train_full`` step of each arch."""
+    arch's run, the training cases (forward kernel and backward a call),
+    the launches of one ``train_full`` step of each arch and of one mesh
+    step (``train_mesh``)."""
     mine = {k: r for k, r in results.items() if k[0] == name}
     main = next(r for (n, c, d), r in mine.items() if c == "serve")
     keys = ("case", "dtype", "shape", "ms", "call_ms", "plain_ms",
@@ -2072,6 +2347,8 @@ def kernel_entry(name, source, replaces, launches, results, full_launches,
                   for (n, _, _), r in grads.items() if n == name],
         "launches_train_full": {arch: n[name]
                                 for arch, n in train_launches.items()},
+        "launches_train_mesh": {arch: n[name]
+                                for arch, n in mesh_launches.items()},
     }
 
 
@@ -2096,6 +2373,8 @@ def main():
                                      ops, ref, rmsnorm, ssd_scan)
     from repro_torch.kernels import route_score as kernel
     from repro_torch.data import pipeline
+    from repro_torch.distributed import compression, sharding
+    from repro_torch.launch import mesh as launch_mesh
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as launch_train
     from repro_torch.models import lm, moe
@@ -2144,11 +2423,16 @@ def main():
         {"rmsnorm": rmsnorm.RMSNormFunction,
          "flash_attention": flash_attention.FlashAttentionFunction,
          "ssd": ssd_scan.SSDFunction}, grad_cases)
+    t_train_mesh = time.perf_counter()
+    mesh_train_launches = phase_train_mesh(
+        torch, configs, lm, moe, train_mod, pipeline, counters, launch_mesh,
+        sharding, compression)
     t_end = time.perf_counter()
     emit({"phase": "timing", "total_s": t_end - t_start,
           "lm_phases_s": t_actor - t_lm, "actor_phases_s": t_train - t_actor,
           "mesh_phase_s": mesh_s,
-          "train_phases_s": t_end - t_train})
+          "train_phases_s": t_train_mesh - t_train,
+          "train_mesh_phase_s": t_end - t_train_mesh})
     main = scores[("main-path-base", "float32")]
     floor = scores[("launch-floor", "float32")]
     err = max([r["max_abs_err"] for (case, dt), r in scores.items()
@@ -2174,6 +2458,8 @@ def main():
         "above_floor_ms": floor["main_path_above_floor_ms"],
         "launches_train_full": {arch: n["route_score"]
                                 for arch, n in train_launches.items()},
+        "launches_train_mesh": {arch: n["route_score"]
+                                for arch, n in mesh_train_launches.items()},
         "mesh_blocks": [{k: r[k] for k in (
             "case", "shape", "inf_rows", "bitwise", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by")}
@@ -2181,7 +2467,7 @@ def main():
     }] + [
         kernel_entry(name, f"{csrc}/{src}.cu", f"{pallas}/{src}.py:{line}",
                      exec_launches[name], lm_results, full_launches, grads,
-                     train_launches)
+                     train_launches, mesh_train_launches)
         for name, src, line in (("rmsnorm", "rmsnorm", 34),
                                 ("flash_attention", "flash_attention", 98),
                                 ("flash_decode", "flash_decode", 83),

@@ -82,13 +82,15 @@ def unembed(params, x, cfg: ArchConfig):
     return x @ w.to(cd)
 
 
-def teacher_forced(params, tokens, cfg: ArchConfig, *, patch_embeds=None):
+def teacher_forced(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
+                   mesh=None):
     """Teacher-forced forward, recorded by autograd when grad mode is on
     (the stack checkpoints its blocks by ``cfg.remat``). Returns (logits,
-    aux)."""
+    aux). ``mesh``: see ``transformer.stack_apply`` (the MoE layers)."""
     x = embed(params, tokens, cfg, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x, _, aux = transformer.stack_apply(params.stack, x, positions, cfg)
+    x, _, aux = transformer.stack_apply(params.stack, x, positions, cfg,
+                                        mesh=mesh)
     x = layers.rmsnorm_apply(params.final_norm, x, cfg)
     return unembed(params, x, cfg), aux
 
@@ -99,15 +101,17 @@ def forward(params, tokens, cfg: ArchConfig, *, patch_embeds=None):
     return teacher_forced(params, tokens, cfg, patch_embeds=patch_embeds)
 
 
-def loss_fn(params, batch, cfg: ArchConfig, *, aux_weight=0.01):
+def loss_fn(params, batch, cfg: ArchConfig, *, mesh=None, aux_weight=0.01):
     """Mean next-token cross-entropy (float32 log-softmax) + the MoE aux
     loss: ``(loss, {"nll", "aux"})``, float32 tensors. Audio averages over
     the codebooks too. The gold logit is a gather where the reference
     contracts with a one-hot (which keeps its vocab axis sharded): exactly
     one term of that sum is nonzero, so the value is the same, without a
-    (B, S, V) float32 one-hot."""
+    (B, S, V) float32 one-hot. Over a ``mesh`` the batch is this rank's
+    rows and the loss their mean."""
     logits, aux = teacher_forced(params, batch["tokens"], cfg,
-                                 patch_embeds=batch.get("patch_embeds"))
+                                 patch_embeds=batch.get("patch_embeds"),
+                                 mesh=mesh)
     logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
     gold = torch.gather(logits32, -1, batch["labels"].long()[..., None])

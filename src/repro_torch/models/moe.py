@@ -21,20 +21,39 @@ in the order of its top-k slots. Three expert paths, as in the reference:
 Every path gathers (no scatter with duplicate indices), so the result is
 the same from run to run on the card. The expert products are plain
 ``torch`` matrix products, as the reference leaves them to XLA.
-``moe_apply`` with a mesh and the expert-parallel body wait for the
-training mesh slice (ROADMAP.md, Queue 1 item 10).
+
+Over a mesh (``moe_apply(mesh=)``) each rank runs one shard body on its
+own rows and its model shard of the experts, and the body returns its
+PARTIAL output; ``moe_apply`` completes it with a sum over the ``model``
+axis (autograd-aware) and averages ``aux`` over the batch axes, as the
+reference's ``psum`` and ``pmean`` do. The two bodies:
+
+* tensor parallel (``moe_parallel="tp"``): ``moe_apply_local`` itself on
+  this rank's ff slice of every expert. The reference sums the experts'
+  rows (``out``) over ``model`` before the gate-weighted combine; here
+  the combined partials are summed: the same terms, rounded in another
+  order.
+* expert parallel (``"ep"``, when the experts divide over ``model``):
+  ``moe_apply_ep_local``, this rank's ``E / M`` whole experts. Replicas
+  routed to other shards sort into a tail bucket behind the local groups;
+  ``_dispatch_sorted`` runs the configured path over the stream with the
+  tail clipped to the last local expert, as the reference does. Under
+  ``group`` that is a second drop quirk: the tail's rows take ranks past
+  that expert's group, so once its group plus the tail passes ``cap`` its
+  row at rank ``cap - 1`` is zeroed, also when the group alone holds
+  exactly ``cap`` rows.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import dtype_of, param
-
-MESH = ("moe_apply over a mesh and its expert-parallel body wait for the "
-        "training mesh slice (ROADMAP.md, Queue 1 item 10)")
 
 
 class MoE(nn.Module):
@@ -113,15 +132,30 @@ def _ragged_experts(params, xs, group_sizes, cd):
     return torch.cat(outs)
 
 
+def _combine(out, gate_sorted, sort_idx, k: int):
+    """Unsort the expert rows and sum each token's k gate-weighted outputs
+    in the order of its top-k slots. out: (T*k, d) in sorted order;
+    gate_sorted: (T*k,) in the same order. Returns (T, d)."""
+    inv = torch.empty_like(sort_idx)  # replica (token, j) sits at row inv[token*k + j]
+    inv[sort_idx] = torch.arange(sort_idx.numel(), device=sort_idx.device)
+    contrib = (out * gate_sorted.to(out.dtype)[:, None])[inv]
+    contrib = contrib.reshape(-1, k, out.shape[-1])
+    y = contrib[:, 0]
+    for j in range(1, k):  # one fixed order: the top-k slots
+        y = y + contrib[:, j]
+    return y
+
+
 def moe_apply_local(params, x, cfg: ArchConfig, impl=None,
                     capacity_factor: float = 1.25):
-    """x: (B, S, d). Returns (y (B, S, d) in the compute type, aux)."""
+    """x: (B, S, d). Returns (y (B, S, d) in the compute type, aux). Over a
+    mesh this is the tensor-parallel shard body: ``params`` then hold this
+    rank's ff slice of every expert and ``y`` is its partial output."""
     impl = impl or cfg.moe_impl
     cd = dtype_of(cfg.compute_dtype)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
-    t = b * s
-    xt = x.reshape(t, d).to(cd)
+    xt = x.reshape(b * s, d).to(cd)
     _, gate, ids, aux = route(params, xt, cfg)
     sort_idx, group_sizes = sort_replicas(ids, e)
     xs = xt[sort_idx // k]                                    # (T*k, d)
@@ -134,24 +168,85 @@ def moe_apply_local(params, x, cfg: ArchConfig, impl=None,
             zero_last_of_overflow=impl == "group")
     else:
         raise ValueError(f"unknown moe impl {impl!r}")
-    # unsort: replica (token, j) sits at row inv[token * k + j]
-    inv = torch.empty_like(sort_idx)
-    inv[sort_idx] = torch.arange(sort_idx.numel(), device=x.device)
-    contrib = (out * gate.reshape(-1)[sort_idx].to(cd)[:, None])[inv]
-    contrib = contrib.reshape(t, k, d)
-    y = contrib[:, 0]
-    for j in range(1, k):  # one fixed order: the top-k slots
-        y = y + contrib[:, j]
+    y = _combine(out, gate.reshape(-1)[sort_idx], sort_idx, k)
     return y.reshape(b, s, d), aux
+
+
+def moe_apply_ep_local(params, x, cfg: ArchConfig, index: int, size: int):
+    """The expert-parallel shard body: model shard ``index`` of ``size``
+    owns experts ``[index * E_loc, (index + 1) * E_loc)`` at full ff width
+    (``params.wg``: (E_loc, d, ff)). It routes all of ``x``'s tokens over
+    the E experts and computes only its own experts' share. Returns (the
+    partial y (B, S, d), aux); the partials of the ``size`` shards sum to
+    the layer's output."""
+    cd = dtype_of(cfg.compute_dtype)
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    e_loc = params.wg.shape[0]
+    if e_loc * size != e:
+        raise ValueError(f"{size} shards of {e_loc} experts are not the "
+                         f"config's {e}")
+    xt = x.reshape(b * s, d).to(cd)
+    _, gate, ids, aux = route(params, xt, cfg)
+    flat = ids.reshape(-1)
+    offset = index * e_loc
+    local = (flat >= offset) & (flat < offset + e_loc)
+    # the other shards' replicas sort into a tail bucket (id e_loc)
+    local_ids = torch.where(local, flat - offset, torch.full_like(flat, e_loc))
+    sort_idx = torch.argsort(local_ids, stable=True)
+    xs = xt[sort_idx // k]
+    group_sizes = torch.bincount(local_ids, minlength=e_loc + 1)[:-1]
+    # the reference's capacity: the global count's 1.25 * e_loc / e over
+    # the local e_loc experts (computed as it does, in that order)
+    out = _dispatch_sorted(params, xs, group_sizes,
+                           dataclasses.replace(cfg, num_experts=e_loc), cd,
+                           capacity_factor=1.25 * e_loc / e)
+    gate_sorted = torch.where(local[sort_idx], gate.reshape(-1)[sort_idx],
+                              gate.new_zeros(()))
+    return _combine(out, gate_sorted, sort_idx, k).reshape(b, s, d), aux
+
+
+def _dispatch_sorted(params, xs, group_sizes, cfg_loc: ArchConfig, cd,
+                     capacity_factor: float = 1.25):
+    """The configured capacity path over an expert-sorted row stream whose
+    rows past ``sum(group_sizes)`` belong to other shards. Each row's
+    expert is its group by position, the tail clipped to the last local
+    expert (the reference's ``searchsorted`` + ``clip``). ``group``
+    counts the tail in that expert's rows, so they take ranks past its
+    group (and slot ``cap - 1`` is zeroed once the two pass ``cap``);
+    ``scan`` (and ``ragged``, as in the reference) keeps only the groups'
+    rows."""
+    rows, e_loc = xs.shape[0], cfg_loc.num_experts
+    ends = torch.cumsum(group_sizes, 0)
+    sorted_ids = torch.searchsorted(
+        ends, torch.arange(rows, device=xs.device), right=True
+    ).clamp(max=e_loc - 1)
+    cap = capacity(capacity_factor, rows, e_loc)
+    if cfg_loc.moe_impl == "group":
+        counts = torch.bincount(sorted_ids, minlength=e_loc)
+        return _capacity_experts(params, xs, sorted_ids, counts, cap, cd,
+                                 zero_last_of_overflow=True)
+    return _capacity_experts(params, xs, sorted_ids, group_sizes, cap, cd,
+                             zero_last_of_overflow=False)
 
 
 def moe_apply(params, x, cfg: ArchConfig, mesh=None):
     """The block's entry. Without a mesh ``moe_parallel`` has no effect, as
-    in the reference; with one it raises."""
-    if mesh is not None:
-        raise NotImplementedError(MESH)
-    return moe_apply_local(params, x, cfg)
-
-
-def moe_apply_ep_local(params, x, cfg: ArchConfig, axis_name="model"):
-    raise NotImplementedError(MESH)
+    in the reference. With one (``sharding.Mesh``; bound to a process
+    group unless it has one device), ``x`` is this rank's rows and
+    ``params`` hold its model shard of the experts: the shard body's
+    partial is summed over ``model`` and ``aux`` averaged over the batch
+    axes (when the batch does not divide, every rank holds the same rows
+    and the mean of equal values is that value)."""
+    if mesh is None:
+        return moe_apply_local(params, x, cfg)
+    m = mesh.shape["model"]
+    if cfg.moe_parallel == "ep" and cfg.num_experts % m == 0:
+        y, aux = moe_apply_ep_local(params, x, cfg,
+                                    sharding.coordinate(mesh, "model"), m)
+    else:
+        y, aux = moe_apply_local(params, x, cfg)
+    y = sharding.all_reduce(y, mesh, ("model",))
+    bax = sharding.batch_axes(mesh)
+    aux = sharding.all_reduce(aux, mesh, bax) / sharding.nbatch(mesh)
+    return y, aux

@@ -15,6 +15,14 @@ reference's; the hybrid's are nested, ``{"groups": (n_groups, period,
 updates them in place and returns the same dict. ``aux`` is the MoE
 blocks' router loss summed over the layers (0.0 without experts).
 
+``mesh`` (a ``distributed.sharding.Mesh``) reaches the blocks' MoE FFN,
+the only layer that acts on it here (``moe.moe_apply``: each rank's rows,
+its expert shard, the partial summed over ``model``). The reference's
+``constrain`` calls on the blocks' activations (residual stream, q/k/v,
+the MLP hidden, the Mamba projections) are GSPMD layout hints with no
+numeric effect; the step runs each rank's forward on plain local tensors,
+so they have no counterpart.
+
 In training (grad mode on, no caches) each block runs under
 ``cfg.remat``, as the reference's ``_maybe_remat``: ``"full"`` keeps only
 the block's inputs and recomputes the block in the backward, ``"dots"``
@@ -47,7 +55,7 @@ class DenseBlock(nn.Module):
 
 
 def dense_block_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
-                      pos=None, collect_cache=False):
+                      pos=None, collect_cache=False, mesh=None):
     """Returns (x, new_cache, aux)."""
     h, new_cache = layers.attention_apply(
         params.attn, layers.rmsnorm_apply(params.ln1, x, cfg), positions, cfg,
@@ -55,7 +63,7 @@ def dense_block_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
     x = x + h
     normed = layers.rmsnorm_apply(params.ln2, x, cfg)
     if cfg.is_moe:
-        f, aux = moe.moe_apply(params.moe, normed, cfg)
+        f, aux = moe.moe_apply(params.moe, normed, cfg, mesh=mesh)
     else:
         f, aux = layers.mlp_apply(params.mlp, normed, cfg), 0.0
     return x + f, new_cache, aux
@@ -143,7 +151,8 @@ def _stack(caches):
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
-def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache):
+def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache,
+         mesh=None):
     """Walk ``blocks`` (all dense or all Mamba). Decode writes each block's
     new cache into its view ``caches[k][i]``; prefill returns the blocks'
     caches stacked in order."""
@@ -154,7 +163,7 @@ def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache):
         if isinstance(blk, DenseBlock):
             x, nc, a = _remat(dense_block_apply, cfg, blk, x, positions, cfg,
                               cache=view, pos=pos,
-                              collect_cache=collect_cache)
+                              collect_cache=collect_cache, mesh=mesh)
         else:
             x, nc, a = _remat(mamba_block_apply, cfg, blk, x, cfg,
                               cache=view, collect_cache=collect_cache)
@@ -171,9 +180,9 @@ def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache):
 
 
 def stack_apply(params, x, positions, cfg: ArchConfig, *, caches=None,
-                pos=None, collect_cache=False):
+                pos=None, collect_cache=False, mesh=None):
     """Returns (x, caches_or_None, aux_sum)."""
-    kw = dict(pos=pos, collect_cache=collect_cache)
+    kw = dict(pos=pos, collect_cache=collect_cache, mesh=mesh)
     if cfg.family != "hybrid":
         return _run(params.blocks, x, positions, cfg, caches=caches, **kw)
     decode = caches is not None

@@ -60,12 +60,18 @@ def _leaves(tree):
     return out
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def square_sum(leaves):
+    """The float32 sum of every element's square, leaf by leaf in order."""
+    return sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves)
+
+
+def clip_by_global_norm(grads, max_norm: float, gnorm=None):
     """Scales every gradient by ``min(1, max_norm / norm)``. The product
     takes JAX's type: a bf16 gradient times the float32 scale is float32
-    (torch would keep bf16)."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in _leaves(grads)))
+    (torch would keep bf16). ``gnorm``: the norm when the caller has it
+    (a sharded step sums its shards' squares across ranks)."""
+    if gnorm is None:
+        gnorm = torch.sqrt(square_sum(_leaves(grads)))
     scale = torch.clamp_max(max_norm / (gnorm + 1e-9), 1.0)
     return tree_map(
         lambda g: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale,

@@ -138,5 +138,10 @@ def test_straggler_monitor_matches_the_reference():
 
 
 def test_a_production_mesh_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    """One process is a world of 1: the production meshes name the
+    devices they need and how to launch that many."""
+    with pytest.raises(RuntimeError, match=r"needs 256 devices, found 1; "
+                       "launch with torchrun"):
         launch.main(["--mesh", "single", "--device", "cpu", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="needs 512 devices, found 1"):
+        launch.main(["--mesh", "multi", "--device", "cpu", "--steps", "1"])

@@ -127,8 +127,15 @@ def test_capacity_arithmetic(cf, rows, e, cap):
 
 
 def test_mesh_paths_name_their_roadmap_item():
+    """The training mesh slice ported the mesh paths: ``moe_apply`` over
+    a (1, 1) mesh (no process group: one device) runs both shard bodies
+    and equals the mesh-free layer bit for bit."""
+    from repro_torch.distributed import sharding
     _, cfg, _, tp, x = _setup("float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        moe.moe_apply(tp, torch.from_numpy(x), cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        moe.moe_apply_ep_local(tp, torch.from_numpy(x), cfg)
+    mesh = sharding.make_mesh((1, 1), ("data", "model"), devices=["cpu"])
+    tx = torch.from_numpy(x)
+    y, aux = moe.moe_apply_local(tp, tx, cfg)
+    for par in ("tp", "ep"):
+        got, got_aux = moe.moe_apply(tp, tx, dataclasses.replace(
+            cfg, moe_parallel=par), mesh=mesh)
+        assert torch.equal(got, y) and torch.equal(got_aux, aux), par

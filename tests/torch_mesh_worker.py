@@ -1,0 +1,186 @@
+"""Multi-rank cases of the port's training mesh, run as a script by the
+``tests/test_torch_{compression,train_mesh}.py`` tests:
+
+    python tests/torch_mesh_worker.py TASK WORLD OUTDIR
+
+It spawns WORLD processes (``torch.multiprocessing``, spawn start) that
+join a gloo process group through a ``file://`` store under OUTDIR (no
+TCP port that two test workers could both take), run ``TASK`` on the CPU
+and write their results under OUTDIR (rank 0 ``result.pt``; each rank
+``rank<r>.pt`` where a task says so). A barrier precedes the group's
+teardown. The tests compare the results with the port's mesh-free step
+and the JAX package in their own process.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.tensor import distribute_tensor
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.configs import get_arch, reduced  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.distributed import compression, sharding  # noqa: E402
+from repro_torch.distributed import fault_tolerance as ft  # noqa: E402
+from repro_torch.launch import train as launch  # noqa: E402
+from repro_torch.models import convert, lm  # noqa: E402
+from repro_torch.models import train as train_mod  # noqa: E402
+
+STEP_RUN = dict(batch=4, seq=32, steps=2)
+RESUME_RUN = dict(batch=4, seq=32, log_every=100, device="cpu")
+# (arch, mesh shape, parameters): "port" drawn by the port (seed 0), "ref"
+# the JAX package's (``ref_params.npz``, written by the test)
+MESH22_CASES = (("smollm_135m", (2, 2), "port"),
+                ("mixtral_8x7b", (2, 2), "ref"),
+                ("mixtral_8x7b", (1, 4), "ref"))
+EP12_CASES = (("qwen3_moe_235b_a22b", (1, 2), "ref"),)
+
+
+def psum_inputs(world: int) -> list:
+    """Each rank's term: N(0, 1), (4, 250) (not a whole number of
+    256-blocks)."""
+    return [np.random.default_rng(r).standard_normal((4, 250))
+            .astype(np.float32) for r in range(world)]
+
+
+def task_psum(rank, world, out: Path):
+    x = torch.from_numpy(psum_inputs(world)[rank])
+    got = compression.compressed_psum(x)
+    bf = compression.compressed_psum(x.to(torch.bfloat16))
+    if rank == 0:
+        torch.save({"f32": got, "bf16": bf}, out / "result.pt")
+
+
+def case_params(arch, source, out: Path):
+    """(cfg, the port's model) of a case's parameters."""
+    cfg = reduced(get_arch(arch))
+    if source == "port":
+        return cfg, lm.init_params(torch.Generator().manual_seed(0), cfg)
+    tree = {}
+    with np.load(out / "ref_params.npz") as f:
+        for key in f.files:
+            if not key.startswith(arch + "/"):
+                continue
+            *path, leaf = key[len(arch) + 1:].split("/")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = f[key]
+    return cfg, convert.params_from_jax(tree, cfg)
+
+
+def run_steps(cfg, params, mesh, steps, batch, seq):
+    """``steps`` train steps of ``params`` (``mesh=None``: mesh-free) on
+    the pipeline's batches 0, 1, ...; returns the per-step (loss, grad
+    norm), the model and the optimizer state."""
+    opt_init, step_fn = train_mod.make_train_step(cfg, mesh=mesh)
+    params.requires_grad_(True)
+    opt = opt_init(params)
+    dc = pipeline.DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab)
+    metrics = []
+    for s in range(steps):
+        params, opt, m = step_fn(params, opt,
+                                 pipeline.synthetic_batch(cfg, dc, s,
+                                                          device="cpu"))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, params, opt
+
+
+def run_cases(cases, world, out: Path, rank: int):
+    """Each case's steps over its mesh; per rank: each leaf's (local
+    numel, numel, spec) and whether ``reshard_checkpoint_tree`` round
+    trips the initial tree and splits it as ``distribute_tensor`` does."""
+    result, mine = {}, {}
+    for arch, shape, source in cases:
+        mesh = sharding.bind(sharding.make_mesh(
+            shape, ("data", "model"), devices=["cpu"] * world))
+        cfg, params = case_params(arch, source, out)
+        specs = sharding.param_specs(params, cfg, mesh)
+        start = {k: p.detach().clone() for k, p in params.named_parameters()}
+        run = dict(STEP_RUN)
+        metrics, params, opt = run_steps(cfg, params, mesh, run.pop("steps"),
+                                         **run)
+        tag = f"{arch}/{shape[0]}x{shape[1]}"
+        mine[tag] = {k: (p.to_local().numel(), p.numel(), specs[k])
+                     for k, p in train_mod.named_params(params).items()}
+        placed = ft.reshard_checkpoint_tree(start, specs, mesh)
+        back = train_mod.full_tensors(placed)
+        mine[tag + "/reshard"] = all(torch.equal(back[k], start[k])
+                                     for k in start)
+        mine[tag + "/reshard_split"] = all(torch.equal(
+            placed[k].to_local(), distribute_tensor(
+                start[k], mesh.groups, sharding.placements(specs[k], mesh),
+                src_data_rank=None).to_local()) for k in start)
+        params = train_mod.unshard(params)
+        result[tag] = {"metrics": metrics,
+                       "params": {k: p.detach() for k, p in
+                                  params.named_parameters()},
+                       "mu": train_mod.full_tensors(opt.mu)}
+    torch.save(mine, out / f"rank{rank}.pt")
+    return result
+
+
+def task_mesh22(rank, world, out: Path):
+    """``MESH22_CASES`` over a world of 4; then a crash-resume through
+    ``launch.train`` over the host mesh, (4, 1): 6 steps straight, and 3
+    steps with a checkpoint followed by a run that resumes to 6."""
+    result = run_cases(MESH22_CASES, world, out, rank)
+    ckpt = out / "resume"
+    _, full_run = launch.train("smollm_135m", steps=6, ckpt_dir=str(
+        ckpt / "a"), ckpt_every=3, **RESUME_RUN)
+    _, first = launch.train("smollm_135m", steps=3, ckpt_dir=str(ckpt / "b"),
+                            ckpt_every=3, **RESUME_RUN)
+    _, rest = launch.train("smollm_135m", steps=6, ckpt_dir=str(ckpt / "b"),
+                           ckpt_every=3, **RESUME_RUN)
+    result["resume"] = {"full": full_run, "first": first, "rest": rest}
+    if rank == 0:
+        torch.save(result, out / "result.pt")
+
+
+def task_ep12(rank, world, out: Path):
+    result = run_cases(EP12_CASES, world, out, rank)
+    if rank == 0:
+        torch.save(result, out / "result.pt")
+
+
+TASKS = {"psum": task_psum, "mesh22": task_mesh22, "ep12": task_ep12}
+
+
+def _entry(rank, task, world, out):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{out / 'store'}",
+                            rank=rank, world_size=world)
+    try:
+        TASKS[task](rank, world, out)
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def spawn(task: str, world: int, out: Path, timeout: float = 300):
+    """Run ``task`` over a gloo world of ``world`` ranks in a child
+    process; returns rank 0's ``result.pt`` and every rank's own file (or
+    ``None``)."""
+    proc = subprocess.run([sys.executable, __file__, task, str(world),
+                           str(out)], capture_output=True, text=True,
+                          timeout=timeout, env=dict(os.environ))
+    if proc.returncode:
+        raise RuntimeError(f"torch_mesh_worker {task} exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    mine = [out / f"rank{r}.pt" for r in range(world)]
+    return (torch.load(out / "result.pt"),
+            [torch.load(m) if m.exists() else None for m in mine])
+
+
+if __name__ == "__main__":
+    task, world, out = sys.argv[1], int(sys.argv[2]), Path(sys.argv[3])
+    out.mkdir(parents=True, exist_ok=True)
+    mp.spawn(_entry, args=(task, world, out), nprocs=world, join=True)
