@@ -147,7 +147,23 @@ Phases, one JSON line each (after the card's name and power limit):
     round trip and within the reference's bound, and its time at
     smollm-135m's embedding-gradient size; ``make_production_mesh()``
     raising on one card;
-19. a ``kernels`` line with each kernel's launches on its main path (the
+19. ``analysis``: serving over a mesh at a world of 1 (a ``nccl`` group
+    for the phase, the (1, 1) host mesh): smollm-135m at full width (4 x
+    512 + 32 decode steps), reduced mixtral (the tensor-parallel MoE
+    body; 2 x 16 + 4) and mamba2-2.7b at full width with 8 layers (a
+    prefill, for ``ssd``) through ``lm.prefill(mesh=)`` and
+    ``decode_step(mesh=)``: every logit bit for bit the mesh-free run's,
+    the same kernel launches. ``launch.hlo_analysis`` on the card against
+    the same calls on fake CPU tensors: the smollm-full prefill and one
+    decode step over a 544-slot cache (flops, bytes and collective bytes
+    equal), one smollm-train-full step (both counts and their difference
+    by op family printed: the card's Function backwards recompute the
+    plain forward) and the step's share of the dense bf16 peak, its
+    counted flops over its median time (10 steps). Then ``python -m
+    repro_torch.launch.dryrun --arch smollm-135m --shape train_4k --mesh
+    single`` in a subprocess: its record's status, trace seconds, peak
+    and argument bytes, flops;
+20. a ``kernels`` line with each kernel's launches on its main path (the
     fleet-scale speculative serve for ``route_score``, and its launches
     on the actor and mesh paths beside them, with the mesh blocks'
     cases; execute-serving for the others, and
@@ -157,7 +173,7 @@ Phases, one JSON line each (after the card's name and power limit):
     numbers at each full-width arch's bf16 case (``FULL_CASE``), the
     training cases' forward and backward times and each kernel's
     launches in one ``train_full`` step and one ``train_mesh`` step;
-20. the last line, ``{"ok": true, "device": {...}}``.
+21. the last line, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32: TF32 is off for cuBLAS and
 cuDNN. Any failed check exits non-zero; without a card, or outside a
@@ -171,6 +187,7 @@ import functools
 import inspect
 import json
 import math
+import os
 import tempfile
 import re
 import shutil
@@ -233,6 +250,15 @@ TRAIN_MESH_PARITY = {"smollm_135m": None, "mamba2_2p7b": None,  # MoE body
 TRAIN_MESH_BLOCK = 10               # timed steps a block; two blocks a variant
 MESH_CELL = dict(n_cells=4, servers_per_cell=16, drain_rate=20000.0,
                  scenario="slo-mix", gen_tokens=8)  # the README's cells form
+# serving over the (1, 1) mesh: (arch, overrides, batch, prompt, decode steps)
+ANALYSIS_SERVE = {
+    "smollm-full": ("smollm_135m", {}, FULL_BATCH, FULL_PROMPT, FULL_DECODE),
+    "mixtral-reduced": ("mixtral_8x7b", {}, 2, 16, 4),
+    "mamba2-full-8": ("mamba2_2p7b", {"num_layers": 8}, FULL_BATCH,
+                      FULL_PROMPT, 0)}
+ANALYSIS_CACHE = FULL_PROMPT + FULL_DECODE   # the decode step's cache: 544
+ANALYSIS_TIMED = 10                 # timed train steps for the step's share
+ANALYSIS_DRYRUN = ("smollm-135m", "train_4k")
 
 
 def emit(obj):
@@ -2315,6 +2341,237 @@ def phase_train_mesh(torch, configs, lm, moe, train_mod, pipeline, counters,
     return {arch: r["mesh_launches"] for arch, r in full.items()}
 
 
+def serve_logits(torch, lm, train_mod, cfg, params, prompt, n, mesh=None):
+    """A prefill of ``prompt`` then ``n`` greedy decode steps on the card,
+    over ``mesh`` (the parameters placed in place and gathered by their
+    use layout) or without one: every step's logits."""
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        ctx = train_mod.gathered(params, train_mod.place_params(
+            params, cfg, mesh), mesh)
+    with ctx:
+        ids, logits, cache = lm.prefill(params, prompt, cfg, mesh=mesh)
+        out = [logits]
+        if n:
+            cache = lm.seat_cache(lm.init_cache(
+                cfg, prompt.shape[0], prompt.shape[1] + n, device="cuda"),
+                cache)
+            tok = ids[:, -1:]
+            for i in range(n):
+                tok, logits, cache = lm.decode_step(
+                    params, cache, tok, prompt.shape[1] + i, cfg, mesh=mesh)
+                out.append(logits)
+    torch.cuda.synchronize()
+    return out
+
+
+def analysis_serve_mesh(np, torch, configs, lm, moe, train_mod, counters,
+                        mesh):
+    """ANALYSIS_SERVE: each case's prefill (and decode steps) without a
+    mesh and through ``lm.prefill(mesh=)`` / ``decode_step(mesh=)`` on a
+    copy of the same weights: bit for bit, the same kernel launches (counts
+    set to 0 just before each run and read just after), the MoE body
+    taken."""
+    rows = []
+    for name, (arch, overrides, batch, seq, n) in ANALYSIS_SERVE.items():
+        cfg = configs.get_arch(arch, **overrides)
+        if name == "mixtral-reduced":
+            cfg = configs.reduced(cfg)
+        params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg)
+        prompt = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab, (batch, seq)), device="cuda")
+        zero_counts(counters)
+        free = serve_logits(torch, lm, train_mod, cfg, params, prompt, n)
+        free_launches = read_counts(counters)
+        placed = copy.deepcopy(params)
+        with moe_bodies(moe) as seen:
+            zero_counts(counters)
+            meshed = serve_logits(torch, lm, train_mod, cfg, placed, prompt,
+                                  n, mesh)
+            mesh_launches = read_counts(counters)
+        bitwise = all(torch.equal(a, b) for a, b in zip(meshed, free))
+        row = {"case": name, "arch": arch, "dtype": cfg.param_dtype,
+               "layers": cfg.num_layers, "d_model": cfg.d_model,
+               "batch": batch, "prompt": seq, "decode_steps": n,
+               "bitwise": bitwise, "max_abs_diff": max(
+                   float((a.float() - b.float()).abs().max())
+                   for a, b in zip(meshed, free)),
+               "launches_mesh": mesh_launches, "launches_free": free_launches,
+               "moe_bodies_taken": seen}
+        emit({"phase": "analysis", **row})
+        check(bitwise, f"analysis {name}: mesh logits off the mesh-free ones")
+        check(mesh_launches == free_launches,
+              f"analysis {name}: launches {mesh_launches} over the mesh, "
+              f"{free_launches} without")
+        for k in needed_kernels(cfg) + (
+                ["flash_decode"] if n and cfg.family != "ssm" else []):
+            check(mesh_launches[k] > 0, f"analysis {name}: {k} never launched")
+        check(not cfg.is_moe or seen["tp"] > 0,
+              f"analysis {name}: the tensor-parallel MoE body was not taken")
+        rows.append(row)
+        del params, placed
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fake_counts(torch, hlo, lm, cfg, kind, batch, seq, train_mod=None):
+    """The analysis of one call at full width on fake CPU tensors (no
+    storage): ``prefill`` of (batch, seq), one ``decode`` step at pos
+    ``seq`` over a cache of ANALYSIS_CACHE, or one mesh-free ``train``
+    step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = lm.LanguageModel(cfg)
+        toks = torch.empty((batch, seq), dtype=torch.long)
+        if kind == "prefill":
+            return hlo.analyze(lm.prefill, params, toks, cfg)
+        if kind == "decode":
+            cache = lm.init_cache(cfg, batch, ANALYSIS_CACHE, device="cpu")
+            return hlo.analyze(lm.decode_step, params, cache, toks[:, :1],
+                               seq, cfg)
+        params.requires_grad_(True)
+        opt_init, step_fn = train_mod.make_train_step(cfg)
+        return hlo.analyze(step_fn, params, opt_init(params),
+                           {"tokens": toks, "labels": toks})
+
+
+def by_op_diff(card, fake):
+    return {k: card["by_op"].get(k, 0.0) - fake["by_op"].get(k, 0.0)
+            for k in sorted(set(card["by_op"]) | set(fake["by_op"]))}
+
+
+def analysis_counts(np, torch, configs, lm, train_mod, pipeline, hlo):
+    """The analysis on the card against the same calls on fake CPU tensors:
+    the smollm-full prefill (4 x 512) and one decode step over a cache of
+    ANALYSIS_CACHE (flops, bytes and collective bytes equal), and one
+    smollm-train-full step (both counts and their difference by op
+    family printed: the card's Function backwards recompute the plain
+    forward). The step's share: its counted flops over its median time
+    (ANALYSIS_TIMED steps, host clock, each ending in a loss read) times
+    the card's dense bf16 peak."""
+    cfg = configs.get_arch("smollm_135m")
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (FULL_BATCH, FULL_PROMPT)), device="cuda")
+    card = {"prefill": hlo.analyze(lm.prefill, params, prompt, cfg)}
+    ids, _, cache = lm.prefill(params, prompt, cfg)
+    cache = lm.seat_cache(lm.init_cache(cfg, FULL_BATCH, ANALYSIS_CACHE,
+                                        device="cuda"), cache)
+    card["decode"] = hlo.analyze(lm.decode_step, params, cache, ids[:, -1:],
+                                 FULL_PROMPT, cfg)
+    out = []
+    for kind in ("prefill", "decode"):
+        fake = fake_counts(torch, hlo, lm, cfg, kind, FULL_BATCH, FULL_PROMPT)
+        same = all(card[kind][k] == fake[k] for k in
+                   ("flops", "hbm_bytes", "collective_bytes"))
+        row = {"case": f"count-{kind}", "arch": "smollm_135m",
+               "batch": FULL_BATCH, "seq": FULL_PROMPT,
+               "cache": ANALYSIS_CACHE if kind == "decode" else None,
+               "card": card[kind], "fake_cpu": fake, "equal": same}
+        emit({"phase": "analysis", **row})
+        check(same, f"analysis count-{kind}: the card counts "
+              f"{ {k: card[kind][k] for k in ('flops', 'hbm_bytes')} }, "
+              f"fake CPU tensors { {k: fake[k] for k in ('flops', 'hbm_bytes')} }")
+        out.append(row)
+    del params, cache
+    torch.cuda.empty_cache()
+
+    overrides, batch, seq = TRAIN_FULL["smollm_135m"]
+    cfg = configs.get_arch("smollm_135m", **overrides)
+    dc = pipeline.DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg).requires_grad_(True)
+    opt_init, step_fn = train_mod.make_train_step(cfg)
+    state = {"opt": opt_init(params), "step": 0}
+
+    def one():
+        _, state["opt"], m = step_fn(params, state["opt"],
+                                     pipeline.synthetic_batch(
+                                         cfg, dc, state["step"], device="cuda"))
+        state["step"] += 1
+        loss = float(m["loss"])
+        check(math.isfinite(loss), "analysis train step: non-finite loss")
+
+    for _ in range(TRAIN_WARMUP):
+        one()
+    step_ms = []
+    for _ in range(ANALYSIS_TIMED):
+        t0 = time.perf_counter()
+        one()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    batch_now = pipeline.synthetic_batch(cfg, dc, state["step"], device="cuda")
+    card_train = hlo.analyze(step_fn, params, state["opt"], batch_now)
+    fake_train = fake_counts(torch, hlo, lm, cfg, "train", batch, seq,
+                             train_mod)
+    median = statistics.median(step_ms)
+    peak = MATMUL_OPS["bfloat16"]
+    row = {"case": "count-train", "arch": "smollm_135m", "batch": batch,
+           "seq": seq, "remat": cfg.remat, "card": card_train,
+           "fake_cpu": fake_train,
+           "flops_card_minus_fake_by_op": by_op_diff(card_train, fake_train),
+           "median_step_ms": median, "step_ms": step_ms,
+           "peak_flops_per_s": peak,
+           "step_share_card_count": card_train["flops"] / (median / 1e3 * peak),
+           "step_share_fake_count": fake_train["flops"] / (median / 1e3 * peak)}
+    emit({"phase": "analysis", **row})
+    check(card_train["flops"] > 0 and fake_train["flops"] > 0,
+          "analysis count-train: no flops counted")
+    del params, state
+    torch.cuda.empty_cache()
+    return out + [row]
+
+
+def analysis_dryrun():
+    """``python -m repro_torch.launch.dryrun`` for ANALYSIS_DRYRUN in a
+    subprocess (a fresh record): its record."""
+    arch, shape = ANALYSIS_DRYRUN
+    record = ROOT / "build" / "dryrun" / f"{arch}_{shape}_pod16x16_baseline.json"
+    record.unlink(missing_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600, env={**os.environ, "PYTHONPATH": str(SRC)})
+    check(proc.returncode == 0 and record.is_file(),
+          f"analysis dry-run exited {proc.returncode}: {proc.stderr[-2000:]}")
+    rec = json.loads(record.read_text())
+    check(rec["status"] == "ok", f"analysis dry-run: {rec.get('error')}")
+    return rec
+
+
+def phase_analysis(np, torch, configs, lm, moe, train_mod, pipeline,
+                   counters, launch_mesh, sharding, hlo):
+    """Serving over a mesh at a world of 1 (a ``nccl`` group started for the
+    phase and torn down after it, the (1, 1) host mesh bound to it:
+    ``analysis_serve_mesh``), the analysis on the card against fake CPU
+    tensors (``analysis_counts``) and the dry-run in a subprocess
+    (``analysis_dryrun``)."""
+    t0 = time.perf_counter()
+    with launch_mesh.process_group("cuda"):
+        mesh = sharding.bind(launch_mesh.make_host_mesh())
+        analysis_serve_mesh(np, torch, configs, lm, moe, train_mod, counters,
+                            mesh)
+    check(not torch.distributed.is_initialized(),
+          "analysis: the process group outlived the phase")
+    analysis_counts(np, torch, configs, lm, train_mod, pipeline, hlo)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    rec = analysis_dryrun()
+    emit({"phase": "analysis", "case": "dryrun", "arch": rec["arch"],
+          "shape": rec["shape"], "mesh": rec["mesh"], "status": rec["status"],
+          "trace_s": rec["trace_s"],
+          "peak_device_bytes": rec["memory"]["peak_device_bytes"],
+          "argument_bytes": rec["memory"]["argument_bytes"],
+          "flops": rec["hlo"]["flops"],
+          "collective_bytes": rec["hlo"]["collective_bytes"]})
+    emit({"phase": "analysis", "case": "timing",
+          "card": smi.stdout.strip().splitlines()[0] if smi.stdout else None,
+          "seconds": time.perf_counter() - t0})
+
+
 def kernel_entry(name, source, replaces, launches, results, full_launches,
                  grads, train_launches, mesh_launches):
     """The ``kernels`` line's entry: execute-serving's case for the times,
@@ -2374,6 +2631,7 @@ def main():
     from repro_torch.kernels import route_score as kernel
     from repro_torch.data import pipeline
     from repro_torch.distributed import compression, sharding
+    from repro_torch.launch import hlo_analysis
     from repro_torch.launch import mesh as launch_mesh
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as launch_train
@@ -2427,12 +2685,16 @@ def main():
     mesh_train_launches = phase_train_mesh(
         torch, configs, lm, moe, train_mod, pipeline, counters, launch_mesh,
         sharding, compression)
+    t_analysis = time.perf_counter()
+    phase_analysis(np, torch, configs, lm, moe, train_mod, pipeline, counters,
+                   launch_mesh, sharding, hlo_analysis)
     t_end = time.perf_counter()
     emit({"phase": "timing", "total_s": t_end - t_start,
           "lm_phases_s": t_actor - t_lm, "actor_phases_s": t_train - t_actor,
           "mesh_phase_s": mesh_s,
           "train_phases_s": t_train_mesh - t_train,
-          "train_mesh_phase_s": t_end - t_train_mesh})
+          "train_mesh_phase_s": t_analysis - t_train_mesh,
+          "analysis_phase_s": t_end - t_analysis})
     main = scores[("main-path-base", "float32")]
     floor = scores[("launch-floor", "float32")]
     err = max([r["max_abs_err"] for (case, dt), r in scores.items()

@@ -2,13 +2,16 @@
 
 One ``ArchConfig`` per assigned architecture (exact numbers from the
 assignment table, source tags in each ``<id>.py``). ``reduced()`` derives
-the CPU-smoke-test variant. The JAX package's ``input_specs`` (abstract
-shape stand-ins for its multi-pod dry-run) has no counterpart here.
+the CPU-smoke-test variant; ``input_specs`` gives a cell's model inputs as
+tensors without storage, the stand-ins of the dry-run
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,3 +204,27 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         grad_accum=1,
     )
 
+
+def input_specs(cfg: ArchConfig, shape_name: str, device="meta") -> dict:
+    """Stand-ins for every model input of this cell, as tensors without
+    storage (``device="meta"``; on the CPU under ``FakeTensorMode``, fake
+    ones): ``tokens`` (audio: one id per codebook), ``labels`` for train,
+    the image stand-in ``patch_embeds`` (bf16); decode's one new token
+    goes against a full cache of ``seq_len``. The reference's shapes and
+    types (``repro.configs.base.input_specs``)."""
+    sh = SHAPES[shape_name]
+    b, s = sh["global_batch"], sh["seq_len"]
+    if sh["kind"] == "decode":
+        s = 1
+    lead = (b, s, cfg.num_codebooks) if cfg.modality == "audio" else (b, s)
+
+    def spec(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    specs = {"tokens": spec(lead)}
+    if sh["kind"] == "train":
+        specs["labels"] = spec(lead)
+    if cfg.modality == "image":
+        # stub frontend: precomputed patch embeddings replace token embeds
+        specs["patch_embeds"] = spec((b, s, cfg.d_model), torch.bfloat16)
+    return specs

@@ -363,6 +363,13 @@ def local_chunk(full, places, mesh: Mesh):
     return full
 
 
+def local_rows(x, mesh: Mesh):
+    """This rank's rows of a batch leaf ``x``: the batch over (pod, data)
+    when it divides, else every row (``constrain_spec``'s ``"batch"``)."""
+    spec = constrain_spec(x.shape, mesh, "batch", *(None,) * (x.ndim - 1))
+    return local_chunk(x, placements(spec, mesh), mesh)
+
+
 def place(full, places, mesh: Mesh):
     """``full`` (the same values on every rank) as a ``DTensor`` of
     ``places`` on the bound ``mesh``: this rank keeps its own piece; no

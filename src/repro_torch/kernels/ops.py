@@ -14,9 +14,27 @@ differentiated by autograd as it stands.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import ref
+
+# ``launch.hlo_analysis`` sets this while an analysis runs: each entry
+# point below then reports its call to it (``_observed``)
+_observer = None
+
+
+def _observed(fn):
+    """The entry point ``fn``, reported to a running analysis as
+    ``_observer(name, fn, args, kwargs)``, which calls it; with none
+    running, one check of the module global."""
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        if _observer is None:
+            return fn(*args, **kwargs)
+        return _observer(fn.__name__, fn, args, kwargs)
+    return entry
 
 
 def _on(name, device):
@@ -33,6 +51,7 @@ def _records(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+@_observed
 def route_score(
     prompt_bits, size_bits, flops_tok, work,
     uplink_bps, backhaul_bps, flops_per_s,
@@ -53,6 +72,7 @@ def route_score(
     return ref.route_score_ref(*args, **kwargs)
 
 
+@_observed
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """Row RMSNorm over the last axis (``csrc/rmsnorm.cu``)."""
     if _on("rmsnorm", x.device):
@@ -64,6 +84,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     return ref.rmsnorm_ref(x, scale, eps)
 
 
+@_observed
 def attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Causal GQA attention at prefill (``csrc/flash_attention.cu``)."""
     if _on("attention", q.device):
@@ -78,6 +99,7 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0):
                              q_offset=q_offset)
 
 
+@_observed
 def decode_attention(q, k, v, pos: int, *, window=0):
     """One query per sequence over a KV cache (``csrc/flash_decode.cu``)."""
     if _on("decode_attention", q.device):
@@ -87,6 +109,7 @@ def decode_attention(q, k, v, pos: int, *, window=0):
     return ref.decode_attention_ref(q, k, v, pos, window=window)
 
 
+@_observed
 def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 256):
     """Mamba2 SSD scan at prefill (``csrc/ssd_scan.cu``); ``chunk`` is the
     plain version's block length (also the backward's) and does not
@@ -100,6 +123,7 @@ def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 256):
     return ref.ssd_chunked_ref(x, dt, a_log, b, c, d_skip, chunk=chunk)
 
 
+@_observed
 def ssd_decode(state, xt, dtt, a_log, bt, ct, d_skip):
     """One recurrent SSD step: plain tensor code on every device, as in
     the JAX package (a single step moves too little to need a kernel)."""

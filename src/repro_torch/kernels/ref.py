@@ -134,7 +134,9 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     """Causal GQA attention. q: (B, Sq, H, D); k, v: (B, Sk, KV, D).
 
     float32 math. ``q_offset`` is the absolute position of q[:, 0];
-    ``window`` > 0 keeps key j for query i iff i - window < j <= i."""
+    ``window`` > 0 keeps key j for query i iff i - window < j <= i.
+    Returned contiguous, the kernel's layout, so that the ops after it
+    are the same on either device (the analysis counts them)."""
     h, d = q.shape[2], q.shape[3]
     rep = h // k.shape[2]
     k = k.repeat_interleave(rep, dim=2)
@@ -144,7 +146,8 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     mask = visible_mask(q.shape[1], k.shape[1], q_offset, causal, window, q.device)
     scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(
+        q.dtype).contiguous()
 
 
 def decode_attention_ref(q, k, v, pos: int, *, window=0):

@@ -121,15 +121,18 @@ def loss_fn(params, batch, cfg: ArchConfig, *, mesh=None, aux_weight=0.01):
 
 
 @torch.no_grad()
-def prefill(params, tokens, cfg: ArchConfig, *, patch_embeds=None):
+def prefill(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
+            mesh=None):
     """Serving prefill: run the full prompt, build the KV/SSM cache, and
     return (next-token ids, last-position logits, caches). The K/V come
     back in the compute type, as the reference's do, also for an int8
-    decode cache."""
+    decode cache. ``mesh``: see ``transformer.stack_apply`` (the MoE
+    layers; ``tokens`` are this rank's rows and ``params`` hold the
+    experts' model shard, as the training step's gather leaves them)."""
     x = embed(params, tokens, cfg, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, caches, _ = transformer.stack_apply(params.stack, x, positions, cfg,
-                                           collect_cache=True)
+                                           collect_cache=True, mesh=mesh)
     x = layers.rmsnorm_apply(params.final_norm, x[:, -1:], cfg)
     logits = unembed(params, x, cfg)
     return torch.argmax(logits, dim=-1), logits, caches
@@ -182,16 +185,17 @@ def seat_cache(full, part):
 
 @torch.no_grad()
 def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig, *,
-                patch_embeds=None):
+                patch_embeds=None, mesh=None):
     """One token for every sequence in the batch.
 
     tokens: (B, 1) (audio: (B, 1, C)); pos: the host int absolute position.
     Updates ``cache`` in place; returns (next ids, logits, cache).
+    ``mesh``: as in ``prefill``.
     """
     x = embed(params, tokens, cfg, patch_embeds)
     positions = torch.full((1,), pos, dtype=torch.long, device=tokens.device)
     x, cache, _ = transformer.stack_apply(params.stack, x, positions, cfg,
-                                          caches=cache, pos=pos)
+                                          caches=cache, pos=pos, mesh=mesh)
     x = layers.rmsnorm_apply(params.final_norm, x, cfg)
     logits = unembed(params, x, cfg)
     return torch.argmax(logits, dim=-1), logits, cache

@@ -72,6 +72,16 @@ class MoE(nn.Module):
         self.wd = param(gen, (e, ff, d), dt, ff ** -0.5)
 
 
+def counts(ids, n: int):
+    """How many of ``ids`` (each in [0, n)) equal each of 0..n-1: the
+    numbers of ``torch.bincount(ids, minlength=n)`` at a length fixed by
+    ``n``, so that the call traces on fake tensors (the dry-run), where
+    ``bincount``'s data-dependent length cannot."""
+    flat = ids.reshape(-1).long()
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def route(params, xt, cfg: ArchConfig):
     """xt: (T, d). Returns float32 (probs (T, E), gates (T, k)), the
     top-k expert ids (T, k) and the Switch aux loss E * sum_e f_e p_e."""
@@ -79,7 +89,7 @@ def route(params, xt, cfg: ArchConfig):
     probs = torch.softmax(xt.float() @ params.router, dim=-1)
     gate, ids = torch.topk(probs, k, dim=-1)
     gate = gate / gate.sum(dim=-1, keepdim=True)
-    f = torch.bincount(ids.reshape(-1), minlength=e).float() / ids.numel()
+    f = counts(ids, e).float() / ids.numel()
     aux = e * torch.sum(f * probs.mean(dim=0))
     return probs, gate, ids, aux
 
@@ -89,8 +99,7 @@ def sort_replicas(ids, e: int):
     (sort_idx, group_sizes): replica ``sort_idx[i]`` (token
     ``sort_idx[i] // k``) is row i of the sorted stream."""
     flat = ids.reshape(-1)
-    return (torch.argsort(flat, stable=True),
-            torch.bincount(flat, minlength=e))
+    return torch.argsort(flat, stable=True), counts(flat, e)
 
 
 def capacity(cf: float, rows: int, e: int) -> int:
@@ -195,7 +204,7 @@ def moe_apply_ep_local(params, x, cfg: ArchConfig, index: int, size: int):
     local_ids = torch.where(local, flat - offset, torch.full_like(flat, e_loc))
     sort_idx = torch.argsort(local_ids, stable=True)
     xs = xt[sort_idx // k]
-    group_sizes = torch.bincount(local_ids, minlength=e_loc + 1)[:-1]
+    group_sizes = counts(local_ids, e_loc + 1)[:-1]
     # the reference's capacity: the global count's 1.25 * e_loc / e over
     # the local e_loc experts (computed as it does, in that order)
     out = _dispatch_sorted(params, xs, group_sizes,
@@ -223,8 +232,8 @@ def _dispatch_sorted(params, xs, group_sizes, cfg_loc: ArchConfig, cd,
     ).clamp(max=e_loc - 1)
     cap = capacity(capacity_factor, rows, e_loc)
     if cfg_loc.moe_impl == "group":
-        counts = torch.bincount(sorted_ids, minlength=e_loc)
-        return _capacity_experts(params, xs, sorted_ids, counts, cap, cd,
+        return _capacity_experts(params, xs, sorted_ids,
+                                 counts(sorted_ids, e_loc), cap, cd,
                                  zero_last_of_overflow=True)
     return _capacity_experts(params, xs, sorted_ids, group_sizes, cap, cd,
                              zero_last_of_overflow=False)

@@ -22,7 +22,9 @@ rank holding ``mesh.devices.flat[rank]``:
   the AdamW moments alike;
 * each step takes this rank's batch rows (``sharding.constrain_spec``:
   the batch over (pod, data) when it divides, else every row on every
-  rank), gathers every leaf whole ("gather"), except the MoE expert
+  rank; with ``grad_accum`` the rows of each microbatch, the global
+  batch split first, as the reference splits it), gathers every leaf
+  whole ("gather"), except the MoE expert
   leaves, which are gathered over the batch axes only and keep their
   ``model`` shard for the shard bodies (``moe.moe_apply``), and runs the
   unchanged ``lm.loss_fn`` on plain local tensors, so the kernels run as
@@ -37,7 +39,7 @@ rank holding ``mesh.devices.flat[rank]``:
 * the clip norm counts every element once: a shard replicated over an
   axis is counted on that axis's rank 0 only, and the sum crosses all
   ranks; AdamW runs on the local shards and updates the moments in
-  place, like the parameters; ``grad_accum`` splits the local rows.
+  place, like the parameters.
 
 A shard over axes of size 1 is the whole leaf (no gather), and at a
 world of 1 every sum and cut is a copy, so the step is the mesh-free one
@@ -77,9 +79,9 @@ def _run(name, fn):
 
 def make_train_step(cfg: ArchConfig, mesh=None, clip_norm: float = 1.0,
                     peak_lr: float = 3e-4):
-    """When ``cfg.grad_accum > 1`` the batch (over a mesh: this rank's
-    rows) is split into that many microbatches, run one after another,
-    and their gradients summed in the parameters' type as
+    """When ``cfg.grad_accum > 1`` the batch is split into that many
+    microbatches (over a mesh: then this rank's rows of each), run one
+    after another, and their gradients summed in the parameters' type as
     ``a + (g / acc)``, the reference's order (its bf16 accumulation at
     full width)."""
     opt_init, opt_update = make_optimizer(cfg, peak_lr=peak_lr)
@@ -98,17 +100,20 @@ def make_train_step(cfg: ArchConfig, mesh=None, clip_norm: float = 1.0,
         grads = part("backward", backward)
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
-    def local_grads(named, params, batch, part, mesh=None):
-        """(loss, {"nll", "aux"}, {name: gradient}) of ``batch``."""
+    def local_grads(named, params, batch, part, mesh=None, rows=None):
+        """(loss, {"nll", "aux"}, {name: gradient}) of ``batch``; over a
+        mesh, of ``rows(microbatch)``, this rank's rows of each."""
+        take = rows or (lambda b: b)
         if acc == 1:
-            return loss_and_grad(named, params, batch, part, mesh)
+            return loss_and_grad(named, params, take(batch), part, mesh)
         micro = {k: v.reshape((acc, v.shape[0] // acc) + v.shape[1:])
                  for k, v in batch.items()}
         grads = {k: torch.zeros_like(p) for k, p in named.items()}
         loss = nll = aux = 0.0
         for i in range(acc):
             l_i, parts, g = loss_and_grad(
-                named, params, {k: v[i] for k, v in micro.items()}, part, mesh)
+                named, params, take({k: v[i] for k, v in micro.items()}),
+                part, mesh)
             grads = {k: a + (g[k] / acc).to(a.dtype) for k, a in grads.items()}
             loss = loss + l_i / acc
             nll = nll + parts["nll"] / acc
@@ -226,6 +231,44 @@ def unshard(params):
     return params
 
 
+def place_params(params, cfg: ArchConfig, mesh) -> dict:
+    """Place the model's parameters on the bound ``mesh`` by
+    ``sharding.param_specs``, in place (this rank keeps its shard; a
+    parameter placed already stays as it is); returns each parameter's
+    ``_Layout``."""
+    from torch.distributed.tensor import DTensor
+
+    layouts = _layouts(params, cfg, mesh)
+    with torch.no_grad():
+        for name, p in list(params.named_parameters()):
+            if not isinstance(p, DTensor):
+                _set_param(params, name, nn.Parameter(
+                    sharding.place(p.detach(), layouts[name].store, mesh),
+                    requires_grad=p.requires_grad))
+    return layouts
+
+
+def use_copies(placed: dict, layouts: dict, mesh) -> dict:
+    """Each placed parameter of ``placed`` as the forward uses it: gathered
+    whole, except the MoE expert leaves, which keep their ``model`` shard
+    (a shard over axes of size 1 is already whole: no gather). Collective:
+    every rank calls it."""
+    with torch.no_grad():
+        return {k: (p.redistribute(mesh.groups, layouts[k].use).to_local()
+                    if layouts[k].gathered else p.to_local())
+                for k, p in placed.items()}
+
+
+@contextlib.contextmanager
+def gathered(params, layouts: dict, mesh):
+    """The placed model with every parameter swapped for its use copy
+    (``use_copies``) for the block: serving over a mesh, ``lm.prefill``
+    and ``lm.decode_step`` with ``mesh=``. Collective."""
+    with _swapped(params, use_copies(dict(params.named_parameters()),
+                                     layouts, mesh)):
+        yield params
+
+
 def _mesh_step(cfg, mesh, local_grads, opt_init, opt_update, clip_norm):
     from torch.distributed.tensor import DTensor
 
@@ -242,16 +285,10 @@ def _mesh_step(cfg, mesh, local_grads, opt_init, opt_update, clip_norm):
                                   shape=like.shape, stride=like.stride())
 
     def init(params):
-        """Place ``params`` on the mesh (in place; a parameter placed
-        already stays as it is) and return the AdamW state, its moments
-        ``DTensor``s placed like the parameters."""
+        """Place ``params`` on the mesh (``place_params``) and return the
+        AdamW state, its moments ``DTensor``s placed like the parameters."""
+        place_params(params, cfg, mesh)
         layouts = layouts_of(params)
-        with torch.no_grad():
-            for name, p in list(params.named_parameters()):
-                if not isinstance(p, DTensor):
-                    _set_param(params, name, nn.Parameter(
-                        sharding.place(p.detach(), layouts[name].store, mesh),
-                        requires_grad=p.requires_grad))
         named = named_params(params)
         state = opt_init({k: local_shard(p) for k, p in named.items()})
         return OptState(step=state.step,
@@ -261,11 +298,9 @@ def _mesh_step(cfg, mesh, local_grads, opt_init, opt_update, clip_norm):
                             for k, v in state.nu.items()})
 
     def batch_rows(batch):
-        """This rank's rows: the batch over (pod, data) when it divides."""
-        return {k: sharding.local_chunk(v, sharding.placements(
-            sharding.constrain_spec(v.shape, mesh, "batch",
-                                    *(None,) * (v.ndim - 1)), mesh), mesh)
-            for k, v in batch.items()}
+        """This rank's rows: the (micro)batch over (pod, data) when it
+        divides, else every row."""
+        return {k: sharding.local_rows(v, mesh) for k, v in batch.items()}
 
     def sync(grads, names):
         """The mean gradients of the mesh, each cut to this rank's stored
@@ -291,20 +326,15 @@ def _mesh_step(cfg, mesh, local_grads, opt_init, opt_update, clip_norm):
     def train_step(params, opt_state: OptState, batch: dict, part=_run):
         named = named_params(params)
         layouts = layouts_of(params)
-        rows = batch_rows(batch)
 
         def gather():
-            """Each leaf as the forward uses it (a shard over axes of size
-            1 is already whole there)."""
-            with torch.no_grad():
-                return {k: (p.redistribute(dm, layouts[k].use).to_local()
-                            if layouts[k].gathered else p.to_local())
-                        .detach().requires_grad_(True)
-                        for k, p in named.items()}
+            return {k: t.detach().requires_grad_(True)
+                    for k, t in use_copies(named, layouts, mesh).items()}
 
         full = part("gather", gather)
         with _swapped(params, full):
-            loss, parts, grads = local_grads(full, params, rows, part, mesh)
+            loss, parts, grads = local_grads(full, params, batch, part, mesh,
+                                             rows=batch_rows)
         del full
 
         def optimize():

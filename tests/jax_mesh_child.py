@@ -1,5 +1,5 @@
 """The JAX package's results on multi-device meshes, for the port's mesh
-tests (``tests/test_torch_{sharding,moe_mesh,train_mesh}.py``):
+tests (``tests/test_torch_{sharding,moe_mesh,train_mesh,lm_mesh}.py``):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \\
         python tests/jax_mesh_child.py TASK IN.npz OUT.npz
@@ -27,7 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro.configs import get_arch, reduced  # noqa: E402
 from repro.data import pipeline  # noqa: E402
 from repro.distributed import sharding  # noqa: E402
-from repro.models import moe  # noqa: E402
+from repro.models import lm, moe  # noqa: E402
 from repro.models import train  # noqa: E402
 
 MOE_MESHES = ((1, 2), (1, 4), (2, 2))
@@ -124,7 +124,38 @@ def task_train(inp, out_path):
     np.savez(out_path, **res)
 
 
-TASKS = {"constrain": task_constrain, "moe": task_moe, "train": task_train}
+def task_lm_mesh(inp, out_path):
+    """The reference's jitted ``lm.prefill(mesh=)`` and ``decode_step(
+    mesh=)`` of ``arch`` on a (1, 2) mesh, from the parameters in the input
+    (``<arch>/...``): a prefill of ``prompt``, its cache padded to
+    ``seq + decode`` (as ``launch.serve``'s generation seats it), then
+    ``decode`` greedy steps; every step's logits and ids."""
+    arch, decode = str(inp["arch"]), int(inp["decode"])
+    cfg = reduced(get_arch(arch))
+    mesh = mesh_of((1, 2))
+    flat = {k: v for k, v in inp.items() if k.startswith(arch + "/")}
+    params = jax.tree.map(jnp.asarray, unflatten(flat, arch + "/"))
+    prompt = jnp.asarray(inp["prompt"])
+    b, s = prompt.shape
+    ids, logits, cache = jax.jit(
+        lambda p, t: lm.prefill(p, t, cfg, mesh=mesh))(params, prompt)
+    full = lm.init_cache(cfg, b, s + decode)
+    cache = jax.tree.map(lambda d, c: jnp.pad(
+        c, [(0, x - y) for x, y in zip(d.shape, c.shape)]).astype(d.dtype),
+        full, cache)
+    step = jax.jit(lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg,
+                                                       mesh=mesh))
+    res = {"logits/0": np.asarray(logits), "ids/0": np.asarray(ids)}
+    tok = ids[:, -1:]
+    for i in range(decode):
+        tok, logits, cache = step(params, cache, tok, jnp.int32(s + i))
+        res[f"logits/{i + 1}"] = np.asarray(logits)
+        res[f"ids/{i + 1}"] = np.asarray(tok)
+    np.savez(out_path, **res)
+
+
+TASKS = {"constrain": task_constrain, "moe": task_moe, "train": task_train,
+         "lm_mesh": task_lm_mesh}
 
 
 def run(task: str, inputs: dict, tmp: Path, timeout: float = 600) -> dict:

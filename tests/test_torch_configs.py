@@ -31,3 +31,20 @@ def test_arch_fields_and_counts_match(name):
     for shape in rconf.SHAPES:
         assert tconf.shape_applicable(got, shape) == \
             rconf.shape_applicable(ref, shape)
+
+
+_JNP_TO_TORCH = {"int32": "torch.int32", "bfloat16": "torch.bfloat16"}
+
+
+@pytest.mark.parametrize("shape", list(rconf.SHAPES))
+@pytest.mark.parametrize("name", rconf.list_archs())
+def test_input_specs_match(name, shape):
+    """``input_specs``: the reference's keys, shapes and types, as tensors
+    without storage."""
+    ref = rconf.input_specs(rconf.get_arch(name), shape)
+    got = tconf.input_specs(tconf.get_arch(name), shape)
+    assert list(got) == list(ref)
+    for k, spec in ref.items():
+        assert tuple(got[k].shape) == tuple(spec.shape), k
+        assert str(got[k].dtype) == _JNP_TO_TORCH[str(spec.dtype)], k
+        assert got[k].device.type == "meta"

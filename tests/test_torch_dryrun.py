@@ -1,0 +1,209 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) on a fake world of
+256 ranks, on the CPU: fake tensors, a ``fake`` process group, no device.
+
+* smollm-135m x ``train_4k`` and x ``decode_32k`` and mamba2-2.7b x
+  ``prefill_32k`` on (16, 16) are ``ok``, depth cut to 2, 2 and 1 layers
+  (the widths, the batch, the sequence and the mesh are the cell's);
+* ``params`` (fake init only) equals the reference's parameter tree for
+  all ten archs, and ``cfg.param_count()`` of both packages but for the
+  leaves that formula omits on four archs (``FORMULA_GAP``);
+* a cell's flops equal the analysis of the mesh-free step, prefill or
+  decode at this rank's rows: nothing but the MoE layer runs sharded;
+* the train cell's collective bytes equal the ring formula over its
+  gathers and its bucketed gradient sums, counted by hand from
+  ``param_specs``; ``argument_bytes`` equals this rank's shards' bytes;
+* llama3-405b x ``long_500k`` is ``skipped`` with the reference's reason;
+* every fake group is torn down after its cell.
+"""
+import math
+
+import jax
+import pytest
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro import configs as rconf
+from repro.models import lm as j_lm
+from repro_torch import configs as tconf
+from repro_torch.distributed import sharding
+from repro_torch.launch import dryrun, hlo_analysis
+from repro_torch.models import lm, train
+
+# (arch, shape, depth cut)
+CELLS = (("smollm-135m", "train_4k", 2), ("smollm-135m", "decode_32k", 2),
+         ("mamba2-2.7b", "prefill_32k", 1))
+DATA = MODEL = 16
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun")
+    recs = {(arch, shape): dryrun.run_cell(
+        arch, shape, multi_pod=False, overrides={"num_layers": layers},
+        results_dir=out, verbose=False) for arch, shape, layers in CELLS}
+    assert not dist.is_initialized()
+    return recs
+
+
+@pytest.mark.parametrize("arch,shape,layers", CELLS)
+def test_cells_are_ok(records, arch, shape, layers):
+    rec = records[arch, shape]
+    assert rec["status"] == "ok", rec.get("trace")
+    assert rec["mesh"] == "pod16x16"
+    assert rec["overrides"] == {"num_layers": layers}
+    assert set(rec["hlo"]) >= {"flops", "hbm_bytes", "collective_bytes",
+                               "collective_counts"}
+    assert rec["trace_s"] > 0 and rec["note"] == dryrun.NOTE
+    assert rec["memory"]["peak_device_bytes"] \
+        >= rec["memory"]["argument_bytes"] > 0
+    assert rec["hlo"]["flops"] > 0 and rec["hlo"]["collective_bytes"] > 0
+
+
+def test_records_land_in_build_dryrun():
+    assert dryrun.RESULTS_DIR.parts[-2:] == ("build", "dryrun")
+    assert "benchmarks" not in dryrun.RESULTS_DIR.parts
+
+
+# leaves that ``ArchConfig.param_count()`` leaves out, in both packages:
+# qwen3's q/k-norm scales; small Mamba2 leaves (mamba2, zamba2)
+FORMULA_GAP = {"qwen3_32b": 16384, "qwen3_moe_235b_a22b": 24064,
+               "mamba2_2p7b": 180224, "zamba2_7b": 300672}
+
+
+@pytest.mark.parametrize("arch", rconf.list_archs())
+def test_params_are_the_reference_trees_and_the_configs_counts(arch):
+    """``params`` (from the fake leaves) equals the reference's parameter
+    tree, leaf for leaf in sum, for all ten archs; and the configs'
+    ``param_count()`` of both packages, but for the leaves that formula
+    omits (``FORMULA_GAP``: a finding about the formula, the same in both
+    packages). ``active_params`` likewise."""
+    cfg, ref = tconf.get_arch(arch), rconf.get_arch(arch)
+    with FakeTensorMode():
+        total, active = dryrun.param_counts(lm.LanguageModel(cfg), cfg)
+    tree = jax.eval_shape(lambda: j_lm.init_params(jax.random.key(0), ref))
+    assert total == sum(math.prod(x.shape) for x in jax.tree.leaves(tree))
+    gap = FORMULA_GAP.get(arch, 0)
+    assert total - gap == cfg.param_count() == ref.param_count()
+    assert active - gap == cfg.active_param_count() \
+        == ref.active_param_count()
+
+
+def test_long_context_on_full_attention_is_skipped(tmp_path):
+    rec = dryrun.run_cell("llama3-405b", "long_500k", multi_pod=False,
+                          results_dir=tmp_path, verbose=False)
+    ok, why = rconf.shape_applicable(rconf.get_arch("llama3-405b"),
+                                     "long_500k")
+    assert not ok
+    assert rec["status"] == "skipped" and rec["reason"] == why
+
+
+def _local_rows(cfg, shape):
+    """This rank's rows of the cell's inputs, as fake tensors."""
+    sh = tconf.SHAPES[shape]
+    rows = sh["global_batch"] // DATA
+    return {k: torch.empty((rows,) + tuple(v.shape[1:]), dtype=v.dtype)
+            for k, v in tconf.input_specs(cfg, shape).items()}
+
+
+@pytest.mark.parametrize("arch,shape,layers", CELLS)
+def test_flops_are_the_mesh_free_call_at_the_local_rows(records, arch, shape,
+                                                        layers):
+    cfg = tconf.get_arch(arch, num_layers=layers)
+    sh = tconf.SHAPES[shape]
+    with FakeTensorMode():
+        params = lm.LanguageModel(cfg)
+        rows = _local_rows(cfg, shape)
+        if sh["kind"] == "train":
+            params.requires_grad_(True)
+            opt_init, step = train.make_train_step(cfg)
+            got = hlo_analysis.analyze(step, params, opt_init(params), rows)
+        elif sh["kind"] == "prefill":
+            got = hlo_analysis.analyze(lm.prefill, params.requires_grad_(False),
+                                       rows["tokens"], cfg)
+        else:
+            cache = lm.init_cache(cfg, rows["tokens"].shape[0],
+                                  sh["seq_len"], device="cpu")
+            got = hlo_analysis.analyze(lm.decode_step,
+                                       params.requires_grad_(False), cache,
+                                       rows["tokens"], sh["seq_len"] - 1, cfg)
+    assert records[arch, shape]["hlo"]["flops"] == got["flops"]
+    assert records[arch, shape]["hlo"]["by_op"] == got["by_op"]
+
+
+def _smollm_layout():
+    """smollm-135m (2 layers) at train_4k on (16, 16): each parameter's
+    (numel, spec), its dtype's bytes, and the batch rows' bytes."""
+    cfg = tconf.get_arch("smollm-135m", num_layers=2)
+    mesh = sharding.make_mesh((DATA, MODEL), ("data", "model"),
+                              devices=["cpu"] * (DATA * MODEL))
+    with FakeTensorMode():
+        params = lm.LanguageModel(cfg)
+        specs = sharding.param_specs(params, cfg, mesh)
+        leaves = {k: (p.numel(), p.shape, specs[k])
+                  for k, p in params.named_parameters()}
+    rows = tconf.SHAPES["train_4k"]["global_batch"] // DATA
+    return cfg, leaves, rows * tconf.SHAPES["train_4k"]["seq_len"] * 4 * 2
+
+
+def _shards(shape, spec):
+    """How many pieces of the (16, 16) mesh a leaf of ``spec`` is cut
+    into, each dimension dividing evenly."""
+    n = 1
+    for d, entry in zip(shape, spec):
+        if entry is not None:
+            assert d % 16 == 0
+            n *= 16
+    return n
+
+
+def test_argument_bytes_are_the_local_shards(records):
+    cfg, leaves, batch_bytes = _smollm_layout()
+    per = 2 + 4 + 4        # bf16 parameter, float32 moments
+    assert cfg.param_dtype == "bfloat16" and cfg.moment_dtype == "float32"
+    local = sum(n // _shards(shape, spec) for n, shape, spec in leaves.values())
+    rec = records["smollm-135m", "train_4k"]
+    assert rec["memory"]["argument_bytes"] == local * per + batch_bytes
+
+
+def test_train_collectives_are_the_ring_formula_by_hand(records):
+    """Each leaf sharded on the mesh is all-gathered whole axis by axis
+    (over both axes: the first gather's output a sixteenth of the leaf,
+    the second's the whole leaf); the bf16 gradients share one bucket,
+    all-reduced over ``data`` then ``model``; then the grad norm's
+    float32 scalar over both axes, and the loss, nll and aux over
+    ``data``."""
+    _, leaves, _ = _smollm_layout()
+    ring_ag, ring_ar = 15 / 16, 2 * 15 / 16
+    gather = 0.0
+    for n, shape, spec in leaves.values():
+        full, pieces = n * 2, _shards(shape, spec)
+        if pieces == DATA * MODEL:
+            gather += (full / MODEL + full) * ring_ag
+        elif pieces > 1:
+            gather += full * ring_ag
+    grads = sum(n for n, _, _ in leaves.values()) * 2
+    reduce = 2 * grads * ring_ar + (2 + 3) * 4 * ring_ar
+    counts = records["smollm-135m", "train_4k"]["hlo"]["collective_counts"]
+    assert set(counts) == {"all-gather", "all-reduce"}
+    assert counts["all-gather"] == pytest.approx(gather, rel=1e-12)
+    assert counts["all-reduce"] == pytest.approx(reduce, rel=1e-12)
+
+
+def test_microbatches_smaller_than_the_batch_shards_run_whole(tmp_path):
+    """The multi-pod mesh has 32 batch shards: ``train_4k``'s 256 rows in
+    16 microbatches of 16 do not divide over them, so every rank runs each
+    microbatch whole, as the reference's step does (its global batch split
+    first; the batch constraint dropped where it does not divide). The
+    step once failed here, splitting 8 local rows into 16."""
+    over = {"num_layers": 1, "grad_accum": 16}
+    rec = dryrun.run_cell("smollm-135m", "train_4k", multi_pod=True,
+                          overrides=over, results_dir=tmp_path, verbose=False)
+    assert rec["status"] == "ok", rec.get("trace")
+    cfg = tconf.get_arch("smollm-135m", **over)
+    with FakeTensorMode():
+        params = lm.LanguageModel(cfg).requires_grad_(True)
+        opt_init, step = train.make_train_step(cfg)
+        batch = tconf.input_specs(cfg, "train_4k", device="cpu")
+        got = hlo_analysis.analyze(step, params, opt_init(params), batch)
+    assert rec["hlo"]["flops"] == got["flops"]

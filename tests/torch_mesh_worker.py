@@ -1,5 +1,6 @@
-"""Multi-rank cases of the port's training mesh, run as a script by the
-``tests/test_torch_{compression,train_mesh}.py`` tests:
+"""Multi-rank cases of the port's mesh, run as a script by the
+``tests/test_torch_{compression,train_mesh,lm_mesh,hlo_analysis}.py``
+tests:
 
     python tests/torch_mesh_worker.py TASK WORLD OUTDIR
 
@@ -13,6 +14,7 @@ and the JAX package in their own process.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -151,7 +153,68 @@ def task_ep12(rank, world, out: Path):
         torch.save(result, out / "result.pt")
 
 
-TASKS = {"psum": task_psum, "mesh22": task_mesh22, "ep12": task_ep12}
+# prefill + decode over a (1, WORLD) mesh (tests/test_torch_lm_mesh.py)
+LM_MESH_CASES = (("smollm_135m", "port"), ("mixtral_8x7b", "ref"))
+LM_PROMPT = dict(batch=2, seq=16, decode=4)
+COUNT_PSUM_NUMEL = 1000   # the analysed all-reduce's float32 elements
+
+
+def lm_prompt(cfg):
+    """The cases' prompt: numpy-drawn token ids (B, S)."""
+    return np.random.default_rng(5).integers(
+        0, cfg.vocab, (LM_PROMPT["batch"], LM_PROMPT["seq"])).astype(np.int32)
+
+
+def generate(cfg, params, mesh=None):
+    """Prefill of ``lm_prompt`` then ``LM_PROMPT["decode"]`` greedy decode
+    steps, over ``mesh`` (its parameters placed and gathered by their use
+    layout) or without one: every step's logits and ids."""
+    prompt = torch.from_numpy(lm_prompt(cfg))
+    b, s, n = LM_PROMPT["batch"], LM_PROMPT["seq"], LM_PROMPT["decode"]
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        ctx = train_mod.gathered(params, train_mod.place_params(
+            params, cfg, mesh), mesh)
+    with ctx:
+        ids, logits, cache = lm.prefill(params, prompt, cfg, mesh=mesh)
+        cache = lm.seat_cache(lm.init_cache(cfg, b, s + n, device="cpu"),
+                              cache)
+        out_logits, out_ids = [logits], [ids]
+        tok = ids[:, -1:]
+        for i in range(n):
+            tok, logits, cache = lm.decode_step(params, cache, tok, s + i,
+                                                cfg, mesh=mesh)
+            out_logits.append(logits)
+            out_ids.append(tok)
+    return {"logits": out_logits, "ids": out_ids}
+
+
+def task_lm_mesh(rank, world, out: Path):
+    mesh = sharding.bind(sharding.make_mesh(
+        (1, world), ("data", "model"), devices=["cpu"] * world))
+    result = {}
+    for arch, source in LM_MESH_CASES:
+        cfg, params = case_params(arch, source, out)
+        result[arch] = generate(cfg, params, mesh)
+    if rank == 0:
+        torch.save(result, out / "result.pt")
+
+
+def task_count_psum(rank, world, out: Path):
+    """``hlo_analysis.analyze`` of ``sharding.all_reduce`` over the
+    ``model`` axis of a (1, world) mesh."""
+    from repro_torch.launch import hlo_analysis
+
+    mesh = sharding.bind(sharding.make_mesh(
+        (1, world), ("data", "model"), devices=["cpu"] * world))
+    got = hlo_analysis.analyze(sharding.all_reduce,
+                               torch.ones(COUNT_PSUM_NUMEL), mesh, ("model",))
+    if rank == 0:
+        torch.save(got, out / "result.pt")
+
+
+TASKS = {"psum": task_psum, "mesh22": task_mesh22, "ep12": task_ep12,
+         "lm_mesh": task_lm_mesh, "count_psum": task_count_psum}
 
 
 def _entry(rank, task, world, out):
