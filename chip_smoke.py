@@ -248,6 +248,7 @@ SIM_WINDOW, EVAL_EPISODES = 256, 32
 TRAIN_MESH_PARITY = {"smollm_135m": None, "mamba2_2p7b": None,  # MoE body
                      "mixtral_8x7b": "tp", "qwen3_moe_235b_a22b": "ep"}
 TRAIN_MESH_BLOCK = 10               # timed steps a block; two blocks a variant
+MESH_PEAK_SLACK = 1.01              # mesh step's peak / the mesh-free one's
 MESH_CELL = dict(n_cells=4, servers_per_cell=16, drain_rate=20000.0,
                  scenario="slo-mix", gen_tokens=8)  # the README's cells form
 # serving over the (1, 1) mesh: (arch, overrides, batch, prompt, decode steps)
@@ -2226,8 +2227,9 @@ def mesh_full(torch, configs, lm, train_mod, pipeline, counters, mesh,
     the peak memory of the block, the kernel launches of one step (counts
     set to 0 just before, read just after; first block of each), one step
     under the profiler and one with its parts profiled (``step_in_parts``:
-    the mesh step's "gather" beside the forward, backward and optimizer;
-    the second block of each)."""
+    the forward, backward and optimizer; the second block of each). The
+    mesh step's peak is held to the mesh-free step's plus 1 %: at a world
+    of 1 it gathers, scatters and copies nothing."""
     out = {}
     for arch, (overrides, batch, seq) in TRAIN_FULL.items():
         cfg = configs.get_arch(arch, **overrides)
@@ -2289,6 +2291,10 @@ def mesh_full(torch, configs, lm, train_mod, pipeline, counters, mesh,
         check(res["mesh"]["launches"] == res["free"]["launches"],
               f"train_mesh {arch}: launches a step {res['mesh']['launches']}"
               f" through the mesh, {res['free']['launches']} without")
+        check(res["mesh"]["peak_gb"] <= MESH_PEAK_SLACK
+              * res["free"]["peak_gb"],
+              f"train_mesh {arch}: peak {res['mesh']['peak_gb']} GB through "
+              f"the mesh, {res['free']['peak_gb']} GB without")
         out[arch] = {"arch": arch, "dtype": cfg.param_dtype,
                      "remat": cfg.remat, "grad_accum": cfg.grad_accum,
                      "layers": cfg.num_layers, "batch": batch, "seq": seq,

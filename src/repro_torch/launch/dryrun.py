@@ -14,8 +14,8 @@ one process on the CPU:
   bf16), placed by ``sharding.param_specs``, ``cache_specs`` and
   ``batch_spec``;
 * train: one ``make_train_step(cfg, mesh=)`` step. Prefill and decode:
-  the parameters gathered by their use layout (``train.gathered``, the
-  step's gather), then ``lm.prefill(mesh=)`` on this rank's rows, or
+  under ``train.gathered`` (each block gathers its leaves as it runs, as
+  the step does), ``lm.prefill(mesh=)`` on this rank's rows, or
   ``lm.decode_step(mesh=)`` on its rows at the cache's last slot. The
   decode cache is stored as ``cache_specs`` places it (the KV sequence
   over ``model``); the port computes attention whole on every rank, so

@@ -60,14 +60,16 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> LanguageModel:
 def embed(params, tokens, cfg: ArchConfig, patch_embeds=None):
     """Token embeddings by ``F.embedding``: the reference's gather, and
     on the CPU its backward sums each row's gradients in a fixed order
-    (an indexing backward's accumulation there is not)."""
+    (an indexing backward's accumulation there is not). Over a mesh the
+    table is gathered for the lookup (``transformer.in_use``)."""
     cd = dtype_of(cfg.compute_dtype)
-    if cfg.modality == "audio":
-        # tokens: (B, S, n_codebooks) — sum the per-codebook embeddings
-        x = sum(F.embedding(tokens[..., c], params.embed[c])
-                for c in range(cfg.num_codebooks)).to(cd)
-    else:
-        x = F.embedding(tokens, params.embed).to(cd)
+    with transformer.in_use(params, ("embed",)):
+        if cfg.modality == "audio":
+            # tokens: (B, S, n_codebooks) — sum the per-codebook embeddings
+            x = sum(F.embedding(tokens[..., c], params.embed[c])
+                    for c in range(cfg.num_codebooks)).to(cd)
+        else:
+            x = F.embedding(tokens, params.embed).to(cd)
     if cfg.modality == "image" and patch_embeds is not None:
         x = x + patch_embeds.to(cd)
     return x
@@ -76,10 +78,12 @@ def embed(params, tokens, cfg: ArchConfig, patch_embeds=None):
 def unembed(params, x, cfg: ArchConfig):
     """Returns logits; audio: (B, S, C, V), else (B, S, V)."""
     cd = dtype_of(cfg.compute_dtype)
-    if cfg.modality == "audio":
-        return torch.einsum("bsd,cdv->bscv", x, params.head.to(cd))
-    w = params.embed.T if cfg.tie_embeddings else params.head
-    return x @ w.to(cd)
+    tied = cfg.modality != "audio" and cfg.tie_embeddings
+    with transformer.in_use(params, ("embed",) if tied else ("head",)):
+        if cfg.modality == "audio":
+            return torch.einsum("bsd,cdv->bscv", x, params.head.to(cd))
+        w = params.embed.T if tied else params.head
+        return x @ w.to(cd)
 
 
 def teacher_forced(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
@@ -127,8 +131,9 @@ def prefill(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
     return (next-token ids, last-position logits, caches). The K/V come
     back in the compute type, as the reference's do, also for an int8
     decode cache. ``mesh``: see ``transformer.stack_apply`` (the MoE
-    layers; ``tokens`` are this rank's rows and ``params`` hold the
-    experts' model shard, as the training step's gather leaves them)."""
+    layers; ``tokens`` are this rank's rows, and ``params`` are placed
+    and held under ``models.train.gathered``, which gathers each block's
+    leaves as it runs, the experts keeping their model shard)."""
     x = embed(params, tokens, cfg, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, caches, _ = transformer.stack_apply(params.stack, x, positions, cfg,

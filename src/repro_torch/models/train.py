@@ -23,28 +23,35 @@ rank holding ``mesh.devices.flat[rank]``:
 * each step takes this rank's batch rows (``sharding.constrain_spec``:
   the batch over (pod, data) when it divides, else every row on every
   rank; with ``grad_accum`` the rows of each microbatch, the global
-  batch split first, as the reference splits it), gathers every leaf
-  whole ("gather"), except the MoE expert
-  leaves, which are gathered over the batch axes only and keep their
-  ``model`` shard for the shard bodies (``moe.moe_apply``), and runs the
-  unchanged ``lm.loss_fn`` on plain local tensors, so the kernels run as
-  they do without a mesh;
-* the gradients of a type that sum over the same axes share one flat
-  buffer and one all-reduce an axis;
-* each gradient is summed over every mesh axis the leaf's gathered copy
-  is replicated on and divided by the world (a leaf used whole gets the
-  mean over the ranks; an expert shard the mean over the batch axes of
-  the ``model``-summed partial's gradient, which carries a factor of the
-  model size), then cut to the stored shard;
+  batch split first, as the reference splits it) and runs the unchanged
+  ``lm.loss_fn`` on a model that holds this rank's shards as plain
+  tensors. Each block gathers its leaves whole as it runs and drops them
+  after (``_GatherOnUse`` under ``transformer.on_use``: one all-gather
+  an axis of size above 1; the MoE expert leaves over the batch axes
+  only, keeping their ``model`` shard for the shard bodies of
+  ``moe.moe_apply``); the embedding and the head are gathered at each
+  use. A block recomputed under remat gathers again; under
+  ``remat="none"`` a block that gathers runs as ``"full"``, so autograd
+  keeps no gathered leaf. The kernels run as they do without a mesh;
+* each gathered use's gradient is reduce-scattered, summed, back to the
+  shard, so the microbatches accumulate shard-sized gradients (the
+  reference's carry is sharded like the parameters);
+* what is left of each gradient's sum, over the axes of size above 1 on
+  which the stored shard is replicated (norms, biases, dims that do not
+  divide), is one all-reduce an axis for each bucket of gradients of a
+  type summed over the same axes, in one flat buffer; every gradient is
+  divided by the world (a leaf used whole gets the mean over the ranks;
+  an expert shard the mean over the batch axes of the ``model``-summed
+  partial's gradient, which carries a factor of the model size);
 * the clip norm counts every element once: a shard replicated over an
   axis is counted on that axis's rank 0 only, and the sum crosses all
   ranks; AdamW runs on the local shards and updates the moments in
   place, like the parameters.
 
-A shard over axes of size 1 is the whole leaf (no gather), and at a
-world of 1 every sum and cut is a copy, so the step is the mesh-free one
-bit for bit. Tensor-parallel compute of attention, the MLP
-and Mamba (sharded products) is not done: those leaves run whole.
+Over axes of size 1 a shard is the whole leaf: nothing is gathered,
+scattered or reduced, so at a world of 1 the step is the mesh-free one
+bit for bit. Tensor-parallel compute of attention, the MLP and Mamba
+(sharded products) is not done: those leaves run whole.
 """
 from __future__ import annotations
 
@@ -53,11 +60,12 @@ import re
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding
-from repro_torch.models import lm
+from repro_torch.models import lm, transformer
 from repro_torch.models.layers import dtype_of
 from repro_torch.optim.adamw import (OptState, adamw, clip_by_global_norm,
                                      cosine_schedule, square_sum)
@@ -150,38 +158,113 @@ def make_train_step(cfg: ArchConfig, mesh=None, clip_norm: float = 1.0,
 _EXPERT = re.compile(r"(^|\.)moe\.w[gud]$")
 
 
+class _Axis(NamedTuple):
+    """One mesh axis a stored shard is gathered over at use: the axis's
+    group and size, this rank's index on it, the tensor dim it cuts and
+    that dim's whole length (``torch.chunk``'s pieces)."""
+    group: object
+    size: int
+    index: int
+    dim: int
+    length: int
+
+
 class _Layout(NamedTuple):
     store: list     # placements of the stored shard (its spec's)
-    use: list       # placements of the copy the forward uses
-    shared: tuple   # the axes ``use`` replicates: its gradient sums over them
-    cut: list       # ``store`` on those axes: the gradient's cut to the shard
+    gather: tuple   # ``_Axis``es (size > 1, mesh order) gathered at use
+    reduce: tuple   # axes (size > 1) the use copy and the shard both
+                    # replicate: the gradient's all-reduce
     counted: bool   # whether this rank counts its shard in the clip norm
-    gathered: bool  # whether ``use`` needs a gather (a shard over an axis > 1)
 
 
 def _layouts(params, cfg: ArchConfig, mesh) -> dict:
-    """Each parameter's ``_Layout`` on the bound ``mesh``. A shard
-    replicated over an axis is counted in the norm on that axis's rank 0
-    only."""
-    from torch.distributed.tensor import Replicate
-
+    """Each parameter's ``_Layout`` on the bound ``mesh``. The copy the
+    layers use is whole, but an MoE expert leaf keeps its ``model`` shard.
+    Its gradient sums over every axis the use copy is replicated on: over
+    ``gather`` by the reduce-scatters of the gather's backward, over
+    ``reduce`` by an all-reduce. A shard replicated over an axis is
+    counted in the norm on that axis's rank 0 only."""
+    shapes = {k: p.shape for k, p in params.named_parameters()}
     out = {}
     for name, spec in sharding.param_specs(params, cfg, mesh).items():
         store = sharding.placements(spec, mesh)
         keep_model = _EXPERT.search(name) is not None
-        use = [p if keep_model and axis == "model" else Replicate()
-               for axis, p in zip(mesh.axis_names, store)]
-        shared = tuple(a for a, u in zip(mesh.axis_names, use)
-                       if u.is_replicate())
-        cut = [s if u.is_replicate() else Replicate()
-               for s, u in zip(store, use)]
+        gather, reduce = [], []
+        for axis, s in zip(mesh.axis_names, store):
+            if mesh.shape[axis] == 1 or (keep_model and axis == "model"
+                                         and s.is_shard()):
+                continue
+            if s.is_replicate():
+                reduce.append(axis)
+                continue
+            if any(a.dim == s.dim for a in gather):
+                raise ValueError(f"{name}: spec {spec} cuts one dim over "
+                                 "two axes")
+            gather.append(_Axis(mesh.groups.get_group(axis),
+                                mesh.shape[axis],
+                                sharding.coordinate(mesh, axis), s.dim,
+                                shapes[name][s.dim]))
         counted = all(sharding.coordinate(mesh, a) == 0
                       for a, s in zip(mesh.axis_names, store)
                       if s.is_replicate())
-        gathered = any(c.is_shard() and mesh.shape[a] > 1
-                       for a, c in zip(mesh.axis_names, cut))
-        out[name] = _Layout(store, use, shared, cut, counted, gathered)
+        out[name] = _Layout(store, tuple(gather), tuple(reduce), counted)
     return out
+
+
+# ``all_gather_single`` / ``reduce_scatter_single`` where torch has them
+# (``*_tensor`` is their deprecated name there)
+_gather_into = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_scatter_from = getattr(dist, "reduce_scatter_single",
+                        dist.reduce_scatter_tensor)
+
+
+def _padded(x, rows: int):
+    """``x`` (its cut dim leading) padded with zero rows to ``rows``."""
+    if x.shape[0] == rows:
+        return x.contiguous()
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
+
+
+def _all_gather(x, ax: _Axis):
+    """The whole of ``ax.dim`` from each rank's ``torch.chunk`` piece:
+    each piece padded to the chunk size, one all-gather, the padding cut
+    off."""
+    c = -(-ax.length // ax.size)
+    x = _padded(x.movedim(ax.dim, 0), c)
+    out = x.new_empty((c * ax.size,) + x.shape[1:])
+    _gather_into(out, x, group=ax.group)
+    return out[:ax.length].movedim(0, ax.dim).contiguous()
+
+
+def _reduce_scatter(g, ax: _Axis):
+    """The sum over the group of ``g`` (whole along ``ax.dim``), cut to
+    this rank's ``torch.chunk`` piece: one reduce-scatter of the padded
+    gradient."""
+    c = -(-ax.length // ax.size)
+    g = _padded(g.movedim(ax.dim, 0), c * ax.size)
+    out = g.new_empty((c,) + g.shape[1:])
+    _scatter_from(out, g, group=ax.group)
+    keep = max(0, min(c, ax.length - ax.index * c))
+    return out[:keep].movedim(0, ax.dim).contiguous()
+
+
+class _GatherOnUse(torch.autograd.Function):
+    """A stored shard as the layers use it: all-gathered over each axis of
+    ``axes`` in mesh order. The backward reduce-scatters the gradient,
+    summing, over the same axes in reverse order, back to the shard."""
+
+    @staticmethod
+    def forward(ctx, shard, axes):
+        ctx.axes = axes
+        for ax in axes:
+            shard = _all_gather(shard, ax)
+        return shard
+
+    @staticmethod
+    def backward(ctx, grad):
+        for ax in reversed(ctx.axes):
+            grad = _reduce_scatter(grad, ax)
+        return grad, None
 
 
 def _set_param(module, name: str, value):
@@ -201,6 +284,29 @@ def _swapped(module, tensors: dict):
     finally:
         for k, p in saved.items():
             _set_param(module, k, p)
+
+
+@contextlib.contextmanager
+def _sharded(params, shards: dict, layouts: dict):
+    """The placed model holding ``shards`` (plain tensors, by name) for
+    the block, each gathered where a layer uses it. Where nothing is
+    gathered (every shard axis of size 1) no hook is set, and the layers
+    run as they do without a mesh."""
+    axes = {id(t): layouts[k].gather for k, t in shards.items()
+            if layouts[k].gather}
+
+    @contextlib.contextmanager
+    def use(module, names=None):
+        """``module``'s leaves gathered (``_GatherOnUse``) for the block."""
+        whole = {k: _GatherOnUse.apply(t, axes[id(t)])
+                 for k, t in module.named_parameters()
+                 if id(t) in axes and (names is None or k in names)}
+        with _swapped(module, whole):
+            yield
+
+    hook = transformer.on_use(use) if axes else contextlib.nullcontext()
+    with _swapped(params, shards), hook:
+        yield params
 
 
 def local_shard(t):
@@ -248,24 +354,15 @@ def place_params(params, cfg: ArchConfig, mesh) -> dict:
     return layouts
 
 
-def use_copies(placed: dict, layouts: dict, mesh) -> dict:
-    """Each placed parameter of ``placed`` as the forward uses it: gathered
-    whole, except the MoE expert leaves, which keep their ``model`` shard
-    (a shard over axes of size 1 is already whole: no gather). Collective:
-    every rank calls it."""
-    with torch.no_grad():
-        return {k: (p.redistribute(mesh.groups, layouts[k].use).to_local()
-                    if layouts[k].gathered else p.to_local())
-                for k, p in placed.items()}
-
-
 @contextlib.contextmanager
 def gathered(params, layouts: dict, mesh):
-    """The placed model with every parameter swapped for its use copy
-    (``use_copies``) for the block: serving over a mesh, ``lm.prefill``
-    and ``lm.decode_step`` with ``mesh=``. Collective."""
-    with _swapped(params, use_copies(dict(params.named_parameters()),
-                                     layouts, mesh)):
+    """The placed model as serving over a mesh uses it (``lm.prefill``
+    and ``lm.decode_step`` with ``mesh=``): it holds this rank's shards,
+    and each block gathers its leaves as it runs (the MoE experts over
+    the batch axes only) and drops them after; the embedding and the head
+    likewise where they are used. Collective."""
+    shards = {k: local_shard(p) for k, p in params.named_parameters()}
+    with _sharded(params, shards, layouts):
         yield params
 
 
@@ -302,22 +399,30 @@ def _mesh_step(cfg, mesh, local_grads, opt_init, opt_update, clip_norm):
         divides, else every row."""
         return {k: sharding.local_rows(v, mesh) for k, v in batch.items()}
 
-    def sync(grads, names):
-        """The mean gradients of the mesh, each cut to this rank's stored
-        shard. One all-reduce an axis for each bucket of gradients of one
-        type summed over the same axes, flattened into one buffer."""
+    def sync(grads):
+        """The mean gradients of the mesh on this rank's shards. Each
+        arrives summed over its gathered axes (the reduce-scatters); the
+        rest of its sum is one all-reduce an axis for each bucket of
+        gradients of one type summed over the same axes, flattened into
+        one buffer. Replaces each entry of ``grads`` as it goes (so an old
+        gradient is freed at once); at a world of 1 there is nothing to
+        do."""
         buckets = {}
-        for k in names:
-            buckets.setdefault((grads[k].dtype, known[k].shared), []).append(k)
-        out = {}
-        for (_, shared), keys in buckets.items():
+        for k, g in grads.items():
+            if known[k].reduce:
+                buckets.setdefault((g.dtype, known[k].reduce), []).append(k)
+        for (_, axes), keys in buckets.items():
             flat = torch.cat([grads[k].reshape(-1) for k in keys])
-            flat = sharding.all_reduce(flat, mesh, shared) / mesh.size
+            flat = sharding.all_reduce(flat, mesh, axes) / mesh.size
             for k, g in zip(keys, flat.split([grads[k].numel()
                                               for k in keys])):
-                out[k] = sharding.local_chunk(g.view(grads[k].shape),
-                                              known[k].cut, mesh)
-        return {k: out[k] for k in names}
+                grads[k] = g.view(grads[k].shape)
+        if mesh.size > 1:
+            summed = {k for keys in buckets.values() for k in keys}
+            for k in grads:
+                if k not in summed:
+                    grads[k] = grads[k] / mesh.size
+        return grads
 
     def mean(x):
         bax = sharding.batch_axes(mesh)
@@ -326,31 +431,29 @@ def _mesh_step(cfg, mesh, local_grads, opt_init, opt_update, clip_norm):
     def train_step(params, opt_state: OptState, batch: dict, part=_run):
         named = named_params(params)
         layouts = layouts_of(params)
-
-        def gather():
-            return {k: t.detach().requires_grad_(True)
-                    for k, t in use_copies(named, layouts, mesh).items()}
-
-        full = part("gather", gather)
-        with _swapped(params, full):
-            loss, parts, grads = local_grads(full, params, batch, part, mesh,
-                                             rows=batch_rows)
-        del full
+        shards = {k: local_shard(p).detach().requires_grad_(p.requires_grad)
+                  for k, p in params.named_parameters()}
+        with _sharded(params, shards, layouts):
+            loss, parts, grads = local_grads(
+                {k: shards[k] for k in named}, params, batch, part, mesh,
+                rows=batch_rows)
 
         def optimize():
+            nonlocal grads          # the synced, then the clipped ones
+                                    # replace them at once
             with torch.no_grad():
-                g = sync(grads, named)
-                sq = square_sum(g[k] for k in named if layouts[k].counted)
+                grads = sync(grads)
+                sq = square_sum(grads[k] for k in named if layouts[k].counted)
                 sq = torch.as_tensor(sq, dtype=torch.float32,
                                      device=loss.device)
                 gnorm = torch.sqrt(sharding.all_reduce(sq, mesh,
                                                        mesh.axis_names))
-                g, _ = clip_by_global_norm(g, clip_norm, gnorm=gnorm)
+                grads, _ = clip_by_global_norm(grads, clip_norm, gnorm=gnorm)
                 values = {k: local_shard(p) for k, p in named.items()}
                 mu = {k: local_shard(m) for k, m in opt_state.mu.items()}
                 nu = {k: local_shard(v) for k, v in opt_state.nu.items()}
                 updates, state = opt_update(
-                    g, OptState(step=opt_state.step, mu=mu, nu=nu), values)
+                    grads, OptState(step=opt_state.step, mu=mu, nu=nu), values)
                 for k, p in values.items():   # shards, moments in place
                     p.add_(updates[k])
                     mu[k].copy_(state.mu[k])

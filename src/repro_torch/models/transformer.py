@@ -23,14 +23,25 @@ the MLP hidden, the Mamba projections) are GSPMD layout hints with no
 numeric effect; the step runs each rank's forward on plain local tensors,
 so they have no counterpart.
 
+Over a mesh the model holds this rank's stored shards, and ``on_use``
+names the hook that hands a module's leaves over as the layers use them
+(``models/train.py``: gathered, the MoE experts keeping their ``model``
+shard). Each block takes its leaves inside the function it runs (and
+checkpoints), and gives them back after it; the embedding and the head
+are taken where ``lm`` uses them (``in_use``).
+
 In training (grad mode on, no caches) each block runs under
 ``cfg.remat``, as the reference's ``_maybe_remat``: ``"full"`` keeps only
 the block's inputs and recomputes the block in the backward, ``"dots"``
 also keeps the matrix products' outputs, ``"none"`` keeps everything.
-Remat changes no number.
+Where a hook is set (some leaf is gathered: a shard axis above 1),
+``"none"`` runs as ``"full"``: the backward gathers again, and autograd
+keeps the block's input and the shards, not the gathered leaves. Remat
+changes no number.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -94,15 +105,20 @@ def _save_matmuls(ctx, op, *args, **kwargs):
             else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat(fn, cfg: ArchConfig, *args, **kwargs):
-    """``fn(*args, **kwargs)`` under the config's remat policy when
-    autograd records, else as it stands. The blocks draw no random
-    numbers, so the RNG state is not saved for the recompute."""
-    if cfg.remat == "none" or not torch.is_grad_enabled():
-        return fn(*args, **kwargs)
-    if cfg.remat == "full":
+def _remat(apply, cfg: ArchConfig, blk, *args, **kwargs):
+    """``apply(blk, *args, **kwargs)`` under the config's remat policy when
+    autograd records, else as it stands, with ``blk``'s leaves handed
+    over by the gather-on-use hook set now (``on_use``; a recompute uses
+    the same hook). Where one is set, ``"none"`` runs as ``"full"``. The
+    blocks draw no random numbers, so the RNG state is not saved for the
+    recompute."""
+    use = _on_use
+    remat = "full" if cfg.remat == "none" and use is not None else cfg.remat
+    if remat == "none" or not torch.is_grad_enabled():
+        return _block(apply, use, blk, *args, **kwargs)
+    if remat == "full":
         context = checkpoint.noop_context_fn
-    elif cfg.remat == "dots":
+    elif remat == "dots":
         make = getattr(checkpoint, "create_selective_checkpoint_contexts",
                        None)
         if make is None:
@@ -112,10 +128,47 @@ def _remat(fn, cfg: ArchConfig, *args, **kwargs):
                 f"{torch.__version__} lacks")
         context = functools.partial(make, _save_matmuls)
     else:
-        raise ValueError(f"remat={cfg.remat!r}: expected none, full or dots")
-    return checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                 context_fn=context, preserve_rng_state=False,
-                                 **kwargs)
+        raise ValueError(f"remat={remat!r}: expected none, full or dots")
+    return checkpoint.checkpoint(_block, apply, use, blk, *args,
+                                 use_reentrant=False, context_fn=context,
+                                 preserve_rng_state=False, **kwargs)
+
+
+# ============================ gather on use ===================================
+_on_use = None      # the hook ``on_use`` names for its block, else None
+
+
+@contextlib.contextmanager
+def on_use(hook):
+    """For the block, ``hook(module, names)`` is the context in which
+    ``module``'s leaves (those of ``names``, or all) are the copies the
+    layers compute on (set only where a leaf is gathered). The blocks
+    take the hook when they run, so a recompute in the backward gathers
+    through the same one."""
+    global _on_use
+    if _on_use is not None:
+        raise RuntimeError("a gather-on-use hook is already set")
+    _on_use = hook
+    try:
+        yield
+    finally:
+        _on_use = None
+
+
+def in_use(module, names=None):
+    """The context in which ``module``'s leaves are as the layers use them
+    (without a hook: as they stand)."""
+    return (contextlib.nullcontext() if _on_use is None
+            else _on_use(module, names))
+
+
+def _block(apply, use, blk, *args, **kwargs):
+    """``apply(blk, ...)`` with ``blk``'s leaves handed over by ``use``
+    (``None``: as they stand) for the call."""
+    if use is None:
+        return apply(blk, *args, **kwargs)
+    with use(blk):
+        return apply(blk, *args, **kwargs)
 
 
 # ============================ stacks ==========================================
@@ -194,7 +247,8 @@ def stack_apply(params, x, positions, cfg: ArchConfig, *, caches=None,
     for g, group in enumerate(params.groups):
         x, gc, _ = _run(group, x, positions, cfg, caches=view("groups", g),
                         **kw)
-        # the same weights after every group; its own cache slot each time
+        # the same weights after every group, gathered at each use; its
+        # own cache slot each time
         x, ac, _ = _remat(dense_block_apply, cfg, params.shared_attn, x,
                           positions, cfg, cache=view("shared_attn", g), **kw)
         groups.append(gc)

@@ -10,8 +10,12 @@
 * a cell's flops equal the analysis of the mesh-free step, prefill or
   decode at this rank's rows: nothing but the MoE layer runs sharded;
 * the train cell's collective bytes equal the ring formula over its
-  gathers and its bucketed gradient sums, counted by hand from
-  ``param_specs``; ``argument_bytes`` equals this rank's shards' bytes;
+  gathers on use (a block's twice under remat), the reduce-scatters of
+  their gradients and its bucketed sums of the replicated leaves, counted
+  by hand from ``param_specs``; ``argument_bytes`` equals this rank's
+  shards' bytes;
+* llama3-405b x ``train_4k`` at 1 and 2 layers: a layer adds less to
+  the peak than one block's whole leaves;
 * llama3-405b x ``long_500k`` is ``skipped`` with the reference's reason;
 * every fake group is torn down after its cell.
 """
@@ -167,27 +171,63 @@ def test_argument_bytes_are_the_local_shards(records):
 
 
 def test_train_collectives_are_the_ring_formula_by_hand(records):
-    """Each leaf sharded on the mesh is all-gathered whole axis by axis
-    (over both axes: the first gather's output a sixteenth of the leaf,
-    the second's the whole leaf); the bf16 gradients share one bucket,
-    all-reduced over ``data`` then ``model``; then the grad norm's
-    float32 scalar over both axes, and the loss, nll and aux over
-    ``data``."""
-    _, leaves, _ = _smollm_layout()
-    ring_ag, ring_ar = 15 / 16, 2 * 15 / 16
-    gather = 0.0
-    for n, shape, spec in leaves.values():
+    """Each leaf sharded on the mesh is all-gathered at each use, axis by
+    axis in mesh order (over both axes: the first gather's output a
+    sixteenth of the leaf, the second's the whole leaf), each microbatch:
+    a block's leaves twice under ``remat="full"`` (the forward and the
+    recompute), the tied embedding once at the lookup and once at the
+    head. Each use's gradient is reduce-scattered back in reverse order
+    (over both axes: a sixteenth of the leaf, then a 256th), at the
+    reference's ``g - 1`` on the scattered output. The shard-sized
+    gradients of the leaves replicated over an axis are all-reduced over
+    it in their bucket; then the grad norm's float32 scalar over both
+    axes, and the loss, nll and aux over ``data``."""
+    cfg, leaves, _ = _smollm_layout()
+    assert cfg.remat == "full" and cfg.tie_embeddings
+    ring_ag, ring_rs, ring_ar = 15 / 16, 15, 2 * 15 / 16
+    gather = scatter = reduce = 0.0
+    for name, (n, shape, spec) in leaves.items():
         full, pieces = n * 2, _shards(shape, spec)
+        uses = 2 if name == "embed" else 1
+        passes = 2 if name.startswith("stack.") else 1
         if pieces == DATA * MODEL:
-            gather += (full / MODEL + full) * ring_ag
+            gathered, scattered = full / MODEL + full, full / MODEL + full / pieces
         elif pieces > 1:
-            gather += full * ring_ag
-    grads = sum(n for n, _, _ in leaves.values()) * 2
-    reduce = 2 * grads * ring_ar + (2 + 3) * 4 * ring_ar
+            gathered, scattered = full, full / pieces
+        else:
+            gathered = scattered = 0.0
+        gather += cfg.grad_accum * uses * passes * gathered * ring_ag
+        scatter += cfg.grad_accum * uses * scattered * ring_rs
+        replicated = 2 - sum(e is not None for e in spec)
+        reduce += replicated * full / pieces * ring_ar
+    reduce += (2 + 3) * 4 * ring_ar
     counts = records["smollm-135m", "train_4k"]["hlo"]["collective_counts"]
-    assert set(counts) == {"all-gather", "all-reduce"}
+    assert set(counts) == {"all-gather", "reduce-scatter", "all-reduce"}
     assert counts["all-gather"] == pytest.approx(gather, rel=1e-12)
+    assert counts["reduce-scatter"] == pytest.approx(scatter, rel=1e-12)
     assert counts["all-reduce"] == pytest.approx(reduce, rel=1e-12)
+
+
+def test_a_train_step_holds_one_block_whole_at_a_time(tmp_path):
+    """llama3-405b x ``train_4k`` on (16, 16) at 1 and 2 layers: the
+    second layer adds less to the per-rank peak than one block's whole
+    bf16 leaves (~5.9 GiB), since a block's leaves are gathered as it runs
+    and dropped after. Gathering the whole model for the step added about
+    four such copies a layer."""
+    peaks = []
+    for layers in (1, 2):
+        rec = dryrun.run_cell("llama3-405b", "train_4k", multi_pod=False,
+                              overrides={"num_layers": layers},
+                              results_dir=tmp_path / str(layers),
+                              verbose=False)
+        assert rec["status"] == "ok", rec.get("trace")
+        peaks.append(rec["memory"]["peak_device_bytes"])
+    cfg = tconf.get_arch("llama3-405b", num_layers=1)
+    with FakeTensorMode():
+        block = lm.LanguageModel(cfg).stack.blocks[0]
+        whole = sum(p.numel() * p.element_size() for p in block.parameters())
+    assert cfg.param_dtype == "bfloat16"
+    assert 0 < peaks[1] - peaks[0] < whole
 
 
 def test_microbatches_smaller_than_the_batch_shards_run_whole(tmp_path):

@@ -1,10 +1,11 @@
 """Serving over a mesh: ``lm.prefill(mesh=)`` and ``lm.decode_step(mesh=)``
 on the CPU, at ``reduced()`` (float32).
 
-The parameters are placed by ``sharding.param_specs`` and gathered by
-their use layout (``models.train.place_params`` / ``gathered``, the
-training step's gather: every leaf whole but the MoE experts, which keep
-their ``model`` shard for the tensor-parallel body). A prefill of 2 x 16
+The parameters are placed by ``sharding.param_specs``
+(``models.train.place_params``) and, under ``models.train.gathered``,
+each block gathers its leaves as it runs, as the training step does:
+every leaf whole but the MoE experts, which keep their ``model`` shard
+for the tensor-parallel body. A prefill of 2 x 16
 tokens and 4 greedy decode steps (``tests/torch_mesh_worker.py``'s
 ``generate``):
 

@@ -9,7 +9,9 @@ Multi-rank cases run in a child process over a gloo world
 
 * (2, 2) smollm-135m and (1, 4) mixtral (tensor-parallel experts) against
   the port's mesh-free step, 2 steps: losses and grad norms within
-  rtol 1e-4, parameters within 1e-4 (PERF.md §2's training parity).
+  rtol 1e-4, parameters within 1e-4 (PERF.md §2's training parity); the
+  same for (2, 2) smollm-135m with ``remat="full"`` and ``grad_accum=2``
+  and for (2, 2) zamba2-7b (its shared block gathered at each use).
 * (2, 2) mixtral and (1, 2) qwen3-moe (expert-parallel) against the
   reference's jitted mesh step on the same JAX mesh, from its own
   parameters. With the batch split over ``data`` each data shard routes
@@ -87,8 +89,8 @@ def runs(tmp_path_factory):
                 "jax": jref.result(), "tmp": tmp}
 
 
-def _mesh_free(arch, source, tmp):
-    cfg, params = worker.case_params(arch, source, tmp)
+def _mesh_free(arch, source, tmp, overrides=None):
+    cfg, params = worker.case_params(arch, source, tmp, overrides)
     run = dict(worker.STEP_RUN)
     return worker.run_steps(cfg, params, None, run.pop("steps"), **run)
 
@@ -96,8 +98,25 @@ def _mesh_free(arch, source, tmp):
 @pytest.mark.parametrize("arch,shape,source", [
     c for c in worker.MESH22_CASES if c[:2] != ("mixtral_8x7b", (2, 2))])
 def test_mesh_step_matches_the_mesh_free_step(runs, arch, shape, source):
-    got = runs["result"][f"{arch}/{shape[0]}x{shape[1]}"]
-    metrics, params, opt = _mesh_free(arch, source, runs["tmp"] / "w22")
+    _assert_mesh_free_parity(runs, arch, shape, source)
+
+
+@pytest.mark.parametrize("arch,shape,source,overrides",
+                         worker.MESH22_VARIANTS)
+def test_mesh_step_variants_match_the_mesh_free_step(runs, arch, shape,
+                                                     source, overrides):
+    """smollm-135m microbatched under remat (each block gathered in its
+    forward and again in its recompute, shard gradients accumulated over
+    two microbatches) and zamba2-7b (the shared block's leaves gathered
+    and reduce-scattered after each of its uses, the Mamba leaves over
+    ``model``), against the mesh-free step of the same config."""
+    _assert_mesh_free_parity(runs, arch, shape, source, overrides)
+
+
+def _assert_mesh_free_parity(runs, arch, shape, source, overrides=None):
+    got = runs["result"][worker.case_tag(arch, shape, overrides)]
+    metrics, params, opt = _mesh_free(arch, source, runs["tmp"] / "w22",
+                                      overrides)
     np.testing.assert_allclose(got["metrics"], metrics, rtol=PARITY)
     for k, p in params.named_parameters():
         np.testing.assert_allclose(got["params"][k].numpy(),

@@ -15,6 +15,7 @@ and the JAX package in their own process.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import subprocess
 import sys
@@ -44,6 +45,18 @@ MESH22_CASES = (("smollm_135m", (2, 2), "port"),
                 ("mixtral_8x7b", (2, 2), "ref"),
                 ("mixtral_8x7b", (1, 4), "ref"))
 EP12_CASES = (("qwen3_moe_235b_a22b", (1, 2), "ref"),)
+# run in the same world after MESH22_CASES: (arch, mesh shape, parameters,
+# config overrides on top of ``reduced()``): a microbatched step under
+# remat, and the hybrid's shared block (used once after each group)
+MESH22_VARIANTS = (("smollm_135m", (2, 2), "port",
+                    {"remat": "full", "grad_accum": 2}),
+                   ("zamba2_7b", (2, 2), "port", {}))
+
+
+def case_tag(arch, shape, overrides=None) -> str:
+    """A case's key in the results: arch/DxM[/key=value...]."""
+    tag = f"{arch}/{shape[0]}x{shape[1]}"
+    return tag + "".join(f"/{k}={v}" for k, v in (overrides or {}).items())
 
 
 def psum_inputs(world: int) -> list:
@@ -61,9 +74,9 @@ def task_psum(rank, world, out: Path):
         torch.save({"f32": got, "bf16": bf}, out / "result.pt")
 
 
-def case_params(arch, source, out: Path):
+def case_params(arch, source, out: Path, overrides=None):
     """(cfg, the port's model) of a case's parameters."""
-    cfg = reduced(get_arch(arch))
+    cfg = dataclasses.replace(reduced(get_arch(arch)), **(overrides or {}))
     if source == "port":
         return cfg, lm.init_params(torch.Generator().manual_seed(0), cfg)
     tree = {}
@@ -101,16 +114,17 @@ def run_cases(cases, world, out: Path, rank: int):
     numel, numel, spec) and whether ``reshard_checkpoint_tree`` round
     trips the initial tree and splits it as ``distribute_tensor`` does."""
     result, mine = {}, {}
-    for arch, shape, source in cases:
+    for arch, shape, source, *over in cases:
+        over = over[0] if over else None
         mesh = sharding.bind(sharding.make_mesh(
             shape, ("data", "model"), devices=["cpu"] * world))
-        cfg, params = case_params(arch, source, out)
+        cfg, params = case_params(arch, source, out, over)
         specs = sharding.param_specs(params, cfg, mesh)
         start = {k: p.detach().clone() for k, p in params.named_parameters()}
         run = dict(STEP_RUN)
         metrics, params, opt = run_steps(cfg, params, mesh, run.pop("steps"),
                                          **run)
-        tag = f"{arch}/{shape[0]}x{shape[1]}"
+        tag = case_tag(arch, shape, over)
         mine[tag] = {k: (p.to_local().numel(), p.numel(), specs[k])
                      for k, p in train_mod.named_params(params).items()}
         placed = ft.reshard_checkpoint_tree(start, specs, mesh)
@@ -131,10 +145,10 @@ def run_cases(cases, world, out: Path, rank: int):
 
 
 def task_mesh22(rank, world, out: Path):
-    """``MESH22_CASES`` over a world of 4; then a crash-resume through
+    """``MESH22_CASES`` and ``MESH22_VARIANTS`` over a world of 4; then a crash-resume through
     ``launch.train`` over the host mesh, (4, 1): 6 steps straight, and 3
     steps with a checkpoint followed by a run that resumes to 6."""
-    result = run_cases(MESH22_CASES, world, out, rank)
+    result = run_cases(MESH22_CASES + MESH22_VARIANTS, world, out, rank)
     ckpt = out / "resume"
     _, full_run = launch.train("smollm_135m", steps=6, ckpt_dir=str(
         ckpt / "a"), ckpt_every=3, **RESUME_RUN)
