@@ -163,7 +163,24 @@ Phases, one JSON line each (after the card's name and power limit):
     repro_torch.launch.dryrun --arch smollm-135m --shape train_4k --mesh
     single`` in a subprocess: its record's status, trace seconds, peak
     and argument bytes, flops;
-20. a ``kernels`` line with each kernel's launches on its main path (the
+20. ``tp_bodies``: the tensor-parallel shard bodies of one layer at full
+    width in bf16, one card standing in for a model axis of
+    ``TP_MODEL`` (16) ranks run one after another (one card has no world
+    above 1): llama3-405b's attention (8 of 128 q heads and the one kv
+    head they read) and MLP (3328 of 53248 ``ff`` columns), mamba2-2.7b's
+    Mamba (5 of 80 SSD heads; the gated norm's sum of squares summed over
+    the ranks first) on 1 x 4096 tokens. Each rank normalises its rows
+    (``rmsnorm``), the rows are concatenated (the gather), each rank's
+    body runs on its slices (``sharding.tp_slice``, as the train step
+    cuts them), and the summed partials are held against the whole
+    layer's body within ``TP_TOL`` (atol = rtol: bf16's ``LM_TOL``,
+    ``SSD_TOL`` for the Mamba body); each kernel at the
+    local shapes (the rows' ``rmsnorm``, ``flash_attention`` and ``ssd``
+    at the arguments rank 0's body handed them) against its plain
+    version (``LM_TOL`` / ``SSD_TOL``); the launches of the 16 bodies
+    (counts set to 0 just before, read just after); device times (CUDA
+    events) of rank 0's body, all 16 and the whole layer's body;
+21. a ``kernels`` line with each kernel's launches on its main path (the
     fleet-scale speculative serve for ``route_score``, and its launches
     on the actor and mesh paths beside them, with the mesh blocks'
     cases; execute-serving for the others, and
@@ -172,8 +189,9 @@ Phases, one JSON line each (after the card's name and power limit):
     the library call's time and its bound, and beside them the same
     numbers at each full-width arch's bf16 case (``FULL_CASE``), the
     training cases' forward and backward times and each kernel's
-    launches in one ``train_full`` step and one ``train_mesh`` step;
-21. the last line, ``{"ok": true, "device": {...}}``.
+    launches in one ``train_full`` step and one ``train_mesh`` step, and
+    those of the ``tp_bodies`` phase;
+22. the last line, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32: TF32 is off for cuBLAS and
 cuDNN. Any failed check exits non-zero; without a card, or outside a
@@ -260,6 +278,16 @@ ANALYSIS_SERVE = {
 ANALYSIS_CACHE = FULL_PROMPT + FULL_DECODE   # the decode step's cache: 544
 ANALYSIS_TIMED = 10                 # timed train steps for the step's share
 ANALYSIS_DRYRUN = ("smollm-135m", "train_4k")
+# tensor-parallel shard bodies on one card: arch -> the bodies of its one
+# layer, each run for every rank of a model axis of TP_MODEL
+TP_BODIES = {"llama3_405b": ("attention", "mlp"), "mamba2_2p7b": ("mamba",)}
+TP_MODEL = 16
+TP_TOKENS = (1, 4096)               # batch x sequence, gathered
+# summed bf16 partials vs the whole layer's body, atol = rtol: the kernel
+# tolerances of the body's type (a slice's projections round apart from
+# the whole product's, and the SSD's decays carry dt's rounding)
+TP_TOL = {"attention": LM_TOL["bfloat16"], "mlp": LM_TOL["bfloat16"],
+          "mamba": SSD_TOL["bfloat16"]}
 
 
 def emit(obj):
@@ -2578,8 +2606,207 @@ def phase_analysis(np, torch, configs, lm, moe, train_mod, pipeline,
           "seconds": time.perf_counter() - t0})
 
 
+@contextlib.contextmanager
+def ops_handed(ops, names):
+    """The first call's (args, kwargs) of each ``ops`` entry point of
+    ``names`` while the block runs."""
+    seen, saved = {}, {n: getattr(ops, n) for n in names}
+
+    def recording(name, fn):
+        def entry(*args, **kwargs):
+            seen.setdefault(name, (args, kwargs))
+            return fn(*args, **kwargs)
+        return entry
+
+    for n, fn in saved.items():
+        setattr(ops, n, recording(n, fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def tp_slices(types, sharding, module, prefix, cfg, index):
+    """``module``'s leaves as model rank ``index`` of ``TP_MODEL`` uses
+    them (``sharding.tp_slice``: views of its slices; other leaves
+    whole)."""
+    leaves = {}
+    for k, t in module.named_parameters():
+        piece = sharding.tp_slice(f"{prefix}.{k}", cfg, index, TP_MODEL)
+        leaves[k] = t if piece is None else t.narrow(piece[0], piece[1],
+                                                     piece[2] - piece[1])
+    return types.SimpleNamespace(**leaves)
+
+
+def phase_tp_bodies(torch, configs, ops, ref, layers, mamba2, transformer,
+                    sharding, counters, dev="cuda"):
+    """``TP_BODIES`` on the card: one layer drawn from seed 0 (its norm
+    scales 1 + 0.5 N(0, 1), not the ones they start at), residual stream
+    x ~ N(0, 1) (1, 4096, d) bf16. Each of the ``TP_MODEL`` ranks
+    normalises its rows with the block's norm; the rows concatenated are
+    the gathered input, held against the plain norm of the whole x, on
+    which each rank's body runs on its slices; the partials' float32 sum
+    is held against the whole layer's body on the whole normalised x.
+    The rmsnorm kernel is held against its plain version on rank 0's
+    pre-norm rows. Every line carries the card's name and power
+    limit. Returns the launches of the bodies' run (the counts set to 0
+    just before the ranks' norms and bodies, read just after). On the CPU
+    (``dev``) the checks of the sums and the plain versions only."""
+    import types
+
+    on_card = dev == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def ms(fn, iters):
+        return time_ms(torch, fn, iters) if on_card else None
+
+    t0 = time.perf_counter()
+    card = None
+    if on_card:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        card = smi.stdout.strip().splitlines()[0] if smi.stdout else None
+    tol = {"rmsnorm": LM_TOL["bfloat16"], "flash_attention":
+           LM_TOL["bfloat16"], "ssd": SSD_TOL["bfloat16"]}
+    launches = dict.fromkeys(counters, 0)
+    for arch, bodies in TP_BODIES.items():
+        cfg = configs.get_arch(arch, num_layers=1)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        block = (transformer.MambaBlock if cfg.family == "ssm"
+                 else transformer.DenseBlock)(cfg, gen).to(dev)
+        block.requires_grad_(False)
+        for k, t in block.named_parameters():     # norm scales start at 1
+            if k.endswith("scale"):
+                t.copy_(1 + 0.5 * torch.randn(t.shape, generator=gen,
+                                              device=dev))
+        b, s = TP_TOKENS
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev
+                        ).to(getattr(torch, cfg.compute_dtype))
+        positions = torch.arange(s, device=dev)
+        for body in bodies:
+            if body == "attention":
+                norm, module, prefix = block.ln1, block.attn, "attn"
+            elif body == "mlp":
+                norm, module, prefix = block.ln2, block.mlp, "mlp"
+            else:
+                norm, module, prefix = block.ln, block.mix, "mix"
+            ss = []
+
+            def run(p, h, index=None, norm_sum=None):
+                if body == "attention":
+                    shard = None if index is None else types.SimpleNamespace(
+                        index=index, size=TP_MODEL)
+                    return layers.attention_apply(p, h, positions, cfg,
+                                                  shard=shard)[0]
+                if body == "mlp":
+                    return layers.mlp_apply(p, h, cfg)
+                return mamba2.mamba_apply(p, h, cfg, norm_sum=norm_sum)[0]
+
+            def normed_rows():
+                return [layers.rmsnorm_apply(norm, r, cfg)
+                        for r in torch.chunk(x, TP_MODEL, dim=1)]
+
+            shards = [tp_slices(types, sharding, module, prefix, cfg, r)
+                      for r in range(TP_MODEL)]
+            if body == "mamba":       # the gated norm's sum over the ranks
+                gathered = torch.cat(normed_rows(), dim=1)
+                for r, p in enumerate(shards):
+                    run(p, gathered, r, norm_sum=lambda t: ss.append(t) or t)
+                total = sum(ss)
+            norm_sum = None if body != "mamba" else (lambda t: total)
+            sync()
+            zero_counts(counters)
+            rows = normed_rows()
+            gathered = torch.cat(rows, dim=1)
+            with ops_handed(ops, ("attention", "ssd")) as handed:
+                partials = [run(p, gathered, r, norm_sum)
+                            for r, p in enumerate(shards)]
+            sync()
+            got_launches = read_counts(counters)
+            for k, n in got_launches.items():
+                launches[k] += n
+            summed = sum(p.float() for p in partials)
+            normed = layers.rmsnorm_apply(norm, x, cfg)
+            whole = run(module, normed)
+            sync()
+            err = float((summed - whole.float()).abs().max())
+            check(bool(torch.isfinite(summed).all()),
+                  f"tp_bodies {arch} {body}: non-finite partials")
+            check(torch.allclose(summed, whole.float(), atol=TP_TOL[body],
+                                 rtol=TP_TOL[body]),
+                  f"tp_bodies {arch} {body}: partials off the whole layer "
+                  f"by {err} beyond {TP_TOL[body]}")
+            plain_rows = ref.rmsnorm_ref(x, norm.scale).float()
+            rows_err = float((gathered.float() - plain_rows).abs().max())
+            check(torch.allclose(gathered.float(), plain_rows,
+                                 atol=tol["rmsnorm"], rtol=tol["rmsnorm"]),
+                  f"tp_bodies {arch} {body}: rows' norm off its plain "
+                  f"version by {rows_err}")
+            local = {"rmsnorm": ((torch.chunk(x, TP_MODEL, dim=1)[0],
+                                  norm.scale), {})}
+            if "attention" in handed:
+                local["flash_attention"] = handed["attention"]
+            if "ssd" in handed:
+                local["ssd"] = handed["ssd"]
+            plain = {"rmsnorm": lambda a, k: ref.rmsnorm_ref(*a),
+                     "flash_attention": lambda a, k: ref.attention_ref(*a, **k),
+                     "ssd": lambda a, k: ref.ssd_chunked_ref(*a, **k)}
+            entry = {"rmsnorm": ops.rmsnorm, "flash_attention": ops.attention,
+                     "ssd": ops.ssd}
+            kernels = {}
+            for name, (a, k) in local.items():
+                got = entry[name](*a, **k)
+                expect = plain[name](a, k)
+                got = got if isinstance(got, tuple) else (got,)
+                expect = expect if isinstance(expect, tuple) else (expect,)
+                kerr = max(float((g.float() - e.float()).abs().max())
+                           for g, e in zip(got, expect))
+                check(all(torch.allclose(g.float(), e.float(), atol=tol[name],
+                                         rtol=tol[name])
+                          for g, e in zip(got, expect)),
+                      f"tp_bodies {arch} {body}: {name} at the local shapes "
+                      f"off its plain version by {kerr}")
+                kernels[name] = {
+                    "shapes": [list(t.shape) for t in a
+                               if isinstance(t, torch.Tensor)],
+                    "max_abs_err": kerr, "tolerance": tol[name],
+                    "ms": ms(lambda: entry[name](*a, **k), 5),
+                    "plain_ms": ms(lambda: plain[name](a, k), 2)}
+            need = {"attention": "flash_attention", "mamba": "ssd"}.get(body)
+            check(not on_card or got_launches["rmsnorm"] == TP_MODEL
+                  and (need is None or got_launches[need] == TP_MODEL),
+                  f"tp_bodies {arch} {body}: launches {got_launches}")
+            emit({"phase": "tp_bodies", "arch": arch, "body": body,
+                  "card": card, "model": TP_MODEL, "tokens": list(TP_TOKENS),
+                  "dtype": cfg.compute_dtype,
+                  "slice_rank0": {k: list(v.shape) for k, v in
+                                  vars(shards[0]).items()},
+                  "max_abs_err_vs_whole": err,
+                  "max_abs_whole": float(whole.float().abs().max()),
+                  "tolerance": TP_TOL[body], "rows_norm_max_abs_err": rows_err,
+                  "launches": got_launches, "kernels": kernels,
+                  "body_rank0_ms": ms(
+                      lambda: run(shards[0], gathered, 0, norm_sum), 5),
+                  "bodies_all_ranks_ms": ms(lambda: [
+                      run(p, gathered, r, norm_sum)
+                      for r, p in enumerate(shards)], 2),
+                  "whole_body_ms": ms(lambda: run(module, normed), 5)})
+            del partials, summed, whole, gathered, normed, rows, plain_rows
+        del block, x
+        if on_card:
+            torch.cuda.empty_cache()
+    emit({"phase": "tp_bodies", "case": "timing", "card": card,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, results, full_launches,
-                 grads, train_launches, mesh_launches):
+                 grads, train_launches, mesh_launches, tp_launches):
     """The ``kernels`` line's entry: execute-serving's case for the times,
     the largest float32 and bf16 errors over all cases, the full-width bf16
     cases ``FULL_CASE[name]`` beside it, the launches of each full-width
@@ -2612,6 +2839,7 @@ def kernel_entry(name, source, replaces, launches, results, full_launches,
                                 for arch, n in train_launches.items()},
         "launches_train_mesh": {arch: n[name]
                                 for arch, n in mesh_launches.items()},
+        "launches_tp_bodies": tp_launches[name],
     }
 
 
@@ -2641,7 +2869,7 @@ def main():
     from repro_torch.launch import mesh as launch_mesh
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import lm, moe
+    from repro_torch.models import layers, lm, mamba2, moe, transformer
     from repro_torch.models import train as train_mod
 
     counters = {"route_score": kernel.route_score, "rmsnorm": rmsnorm.rmsnorm,
@@ -2694,13 +2922,17 @@ def main():
     t_analysis = time.perf_counter()
     phase_analysis(np, torch, configs, lm, moe, train_mod, pipeline, counters,
                    launch_mesh, sharding, hlo_analysis)
+    t_tp = time.perf_counter()
+    tp_launches = phase_tp_bodies(torch, configs, ops, ref, layers, mamba2,
+                                  transformer, sharding, counters)
     t_end = time.perf_counter()
     emit({"phase": "timing", "total_s": t_end - t_start,
           "lm_phases_s": t_actor - t_lm, "actor_phases_s": t_train - t_actor,
           "mesh_phase_s": mesh_s,
           "train_phases_s": t_train_mesh - t_train,
           "train_mesh_phase_s": t_analysis - t_train_mesh,
-          "analysis_phase_s": t_end - t_analysis})
+          "analysis_phase_s": t_tp - t_analysis,
+          "tp_bodies_phase_s": t_end - t_tp})
     main = scores[("main-path-base", "float32")]
     floor = scores[("launch-floor", "float32")]
     err = max([r["max_abs_err"] for (case, dt), r in scores.items()
@@ -2728,6 +2960,7 @@ def main():
                                 for arch, n in train_launches.items()},
         "launches_train_mesh": {arch: n["route_score"]
                                 for arch, n in mesh_train_launches.items()},
+        "launches_tp_bodies": tp_launches["route_score"],
         "mesh_blocks": [{k: r[k] for k in (
             "case", "shape", "inf_rows", "bitwise", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by")}
@@ -2735,7 +2968,7 @@ def main():
     }] + [
         kernel_entry(name, f"{csrc}/{src}.cu", f"{pallas}/{src}.py:{line}",
                      exec_launches[name], lm_results, full_launches, grads,
-                     train_launches, mesh_train_launches)
+                     train_launches, mesh_train_launches, tp_launches)
         for name, src, line in (("rmsnorm", "rmsnorm", 34),
                                 ("flash_attention", "flash_attention", 98),
                                 ("flash_decode", "flash_decode", 83),

@@ -30,11 +30,16 @@ does not divide falls back to replication where the reference checks
 (attention heads, vocab, experts, the batch) and is sharded unevenly
 (``DTensor`` splits like ``torch.chunk``) where it does not (ff).
 
-Activations are not DTensors here: the training step runs each rank's
-forward on plain local tensors, so the reference's ``constrain`` layout
-hints have no counterpart call. ``constrain_spec`` keeps their
-resolution rule (the ``"batch"`` expansion, the ``"!"`` force, the
-divisibility fallback), and the step places its batch rows with it.
+Activations are not DTensors here: each rank runs its forward on plain
+local tensors, and the layout the reference's ``constrain`` hints pin
+is made by hand. ``constrain_spec`` keeps their resolution rule (the
+``"batch"`` expansion, the ``"!"`` force, the divisibility fallback);
+the step places its batch rows with it. Over ``model`` (``ModelShard``)
+the residual stream is this rank's rows of the sequence where the
+sequence divides, and a block's tensor-parallel body runs on this rank's
+slices (``tp_slice``: its heads, ``ff`` or ``d_inner`` channels) between
+``gather_seq`` and ``scatter_seq``, autograd Functions each of whose
+backward is the other's forward.
 """
 from __future__ import annotations
 
@@ -170,6 +175,230 @@ def all_reduce(x, mesh: Mesh, axes):
     for axis in axes:
         x = _AllReduceSum.apply(x, mesh.groups.get_group(axis))
     return x
+
+
+# ------------------------------------------------------ chunked collectives
+class Axis(NamedTuple):
+    """One mesh axis a tensor is cut over: the axis's group and size,
+    this rank's index on it, the tensor dim it cuts and that dim's whole
+    length (``torch.chunk``'s pieces)."""
+    group: object
+    size: int
+    index: int
+    dim: int
+    length: int
+
+
+# ``all_gather_single`` / ``reduce_scatter_single`` where torch has them
+# (``*_tensor`` is their deprecated name there)
+_gather_into = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_scatter_from = getattr(dist, "reduce_scatter_single",
+                        dist.reduce_scatter_tensor)
+
+
+def _padded(x, rows: int):
+    """``x`` (its cut dim leading) padded with zero rows to ``rows``."""
+    if x.shape[0] == rows:
+        return x.contiguous()
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
+
+
+def _gather_padded(x, group, size: int, width: int):
+    """Each rank's ``x`` (its cut dim leading) padded to ``width`` rows,
+    concatenated in rank order: one all-gather."""
+    x = _padded(x, width)
+    out = x.new_empty((width * size,) + x.shape[1:])
+    _gather_into(out, x, group=group)
+    return out
+
+
+def all_gather(x, ax: Axis):
+    """The whole of ``ax.dim`` from each rank's ``torch.chunk`` piece:
+    each piece padded to the chunk size, one all-gather, the padding cut
+    off."""
+    c = -(-ax.length // ax.size)
+    out = _gather_padded(x.movedim(ax.dim, 0), ax.group, ax.size, c)
+    return out[:ax.length].movedim(0, ax.dim).contiguous()
+
+
+def reduce_scatter(g, ax: Axis):
+    """The sum over the group of ``g`` (whole along ``ax.dim``), cut to
+    this rank's ``torch.chunk`` piece: one reduce-scatter of the padded
+    gradient."""
+    c = -(-ax.length // ax.size)
+    g = _padded(g.movedim(ax.dim, 0), c * ax.size)
+    out = g.new_empty((c,) + g.shape[1:])
+    _scatter_from(out, g, group=ax.group)
+    keep = max(0, min(c, ax.length - ax.index * c))
+    return out[:keep].movedim(0, ax.dim).contiguous()
+
+
+# ------------------------------------------------- tensor and sequence parallel
+class ModelShard(NamedTuple):
+    """This rank's place on ``model`` for a call over a sequence of
+    ``seq`` positions: the axis (``Axis`` over dim 1, the sequence), and
+    ``rows``, whether the residual stream is this rank's rows of the
+    sequence (the sequence divides the axis) or whole on every rank."""
+    mesh: Mesh
+    axis: Axis
+    rows: bool
+
+    @property
+    def index(self) -> int:
+        return self.axis.index
+
+    @property
+    def size(self) -> int:
+        return self.axis.size
+
+
+def model_shard(mesh, seq: int):
+    """The ``ModelShard`` of a call over ``seq`` positions on ``mesh``;
+    ``None`` without a mesh or where ``model`` has size 1 (then nothing
+    is cut and the layers run as they do without a mesh)."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    index = coordinate(mesh, "model")
+    ax = Axis(mesh.groups.get_group("model"), mesh.shape["model"], index, 1,
+              seq)
+    rows = constrain_spec((seq,), mesh, "model")[0] is not None
+    return ModelShard(mesh, ax, rows)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather of this rank's rows over ``model`` forward; the backward
+    reduce-scatters the gradient, summing, back to the rows."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return all_gather(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.ax), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter of a partial sum over ``model`` into this rank's
+    rows forward; the backward all-gathers the rows' gradient."""
+
+    @staticmethod
+    def forward(ctx, y, ax):
+        ctx.ax = ax
+        return reduce_scatter(y, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.ax), None
+
+
+def gather_seq(x, tp):
+    """The whole sequence of the residual stream ``x`` for a body: the
+    rows all-gathered, or ``x`` itself where it is whole (``tp`` None, or
+    the sequence does not divide ``model``). Where the rows stay whole,
+    each rank's body adds only its own slice's term to the gradient of
+    ``x``, so the ranks' gradients of the stream differ; every use of
+    them ends in a sum over ``model`` (the previous partial's
+    all-reduce, a whole-used leaf's gradient sum), which is the sum of
+    all the slices' terms."""
+    if tp is None or not tp.rows:
+        return x
+    return _GatherSeq.apply(x, tp.axis)
+
+
+def scatter_seq(y, tp):
+    """A body's partial ``y`` (the whole sequence) summed over ``model``
+    into this rank's rows (whole where the sequence does not divide:
+    every rank goes on with the same total); ``y`` where ``tp`` is
+    None."""
+    if tp is None:
+        return y
+    if tp.rows:
+        return _ScatterSeq.apply(y, tp.axis)
+    return _AllReduceSum.apply(y, tp.axis.group)
+
+
+def seq_rows(x, tp):
+    """This rank's rows of ``x`` (its dim 1 the whole sequence), no
+    communication; ``x`` where the rows stay whole."""
+    if tp is None or not tp.rows:
+        return x
+    return torch.chunk(x, tp.size, dim=1)[tp.index]
+
+
+def gather_ranges(x, tp, dim: int, ranges, length: int):
+    """The whole of ``dim`` (``length``) from each rank's piece ``x`` of
+    positions ``ranges[rank]`` (``(start, stop)``; pieces may overlap or
+    be empty), each position from the first rank that holds it: one
+    all-gather of the pieces padded to the widest. Collective."""
+    width = max(hi - lo for lo, hi in ranges)
+    out = _gather_padded(x.movedim(dim, 0), tp.axis.group, tp.size, width)
+    src = {}
+    for r, (lo, hi) in enumerate(ranges):
+        for j in range(lo, hi):
+            src.setdefault(j, r * width + j - lo)
+    idx = torch.tensor([src[j] for j in range(length)], device=x.device)
+    return out.index_select(0, idx).movedim(0, dim).contiguous()
+
+
+def heads_of(n: int, index: int, size: int) -> tuple:
+    """``(start, stop)`` of piece ``index`` of ``n`` heads (or channels)
+    cut into ``size`` by ``torch.chunk``: empty past the last piece."""
+    c = -(-n // size)
+    start = min(n, index * c)
+    return start, min(n, start + c)
+
+
+def kv_heads_of(cfg: ArchConfig, index: int, size: int) -> tuple:
+    """``(start, stop)`` of the kv heads model rank ``index`` of ``size``
+    reads: its ``torch.chunk`` piece where the kv heads divide ``size``,
+    else the kv heads ``h // (H / KV)`` of its q heads ``h``."""
+    kv = cfg.num_kv_heads
+    if kv % size == 0:
+        return index * kv // size, (index + 1) * kv // size
+    g = cfg.num_heads // kv
+    q0, q1 = heads_of(cfg.num_heads, index, size)
+    return (q0 // g, q0 // g) if q0 == q1 else (q0 // g, (q1 - 1) // g + 1)
+
+
+# the leaves a block's tensor-parallel body takes a slice of: (path, the
+# dim it cuts, what it cuts); every other leaf is used whole
+_TP_LEAVES = ((r"attn/wq$", 1, "heads"), (r"attn/w[kv]$", 1, "kv"),
+              (r"attn/wo$", 0, "heads"), (r"mlp/w[gu]$", 1, "ff"),
+              (r"mlp/wd$", 0, "ff"), (r"mix/(wz|wx|conv_x)$", 1, "inner"),
+              (r"mix/(conv_bias_x|norm_scale|out_proj)$", 0, "inner"),
+              (r"mix/wdt$", 1, "ssm"), (r"mix/(a_log|d_skip|dt_bias)$", 0,
+                                        "ssm"))
+
+
+def tp_slice(name: str, cfg: ArchConfig, index: int, size: int):
+    """``(dim, start, stop)`` of the slice of parameter ``name`` that
+    model rank ``index`` of ``size`` computes on (attention: its
+    ``torch.chunk`` piece of the q heads and the kv heads they read; the
+    MLP: its piece of ``ff``; Mamba: its piece of the SSD heads, as
+    channels of ``d_inner`` where the leaf is one), or ``None`` for a
+    leaf used whole (and for every leaf where ``size`` is 1). The MoE
+    experts are not here: their ``model`` shard is their slice."""
+    if size == 1:
+        return None
+    path = name.replace(".", "/")
+    for pattern, dim, what in _TP_LEAVES:
+        if re.search(pattern, path):
+            break
+    else:
+        return None
+    if what == "heads":
+        lo, hi = heads_of(cfg.num_heads, index, size)
+    elif what == "kv":
+        lo, hi = kv_heads_of(cfg, index, size)
+    elif what == "ff":
+        lo, hi = heads_of(cfg.d_ff, index, size)
+    else:
+        lo, hi = heads_of(cfg.ssm_heads, index, size)
+        if what == "inner":
+            lo, hi = lo * cfg.ssm_head_dim, hi * cfg.ssm_head_dim
+    return dim, lo, hi
 
 
 # ------------------------------------------------------------------ specs

@@ -130,24 +130,37 @@ def visible_mask(sq, sk, q_offset, causal, window, device):
     return mask
 
 
+Q_CHUNK = 4096  # queries a block of the plain attention
+
+
 def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     """Causal GQA attention. q: (B, Sq, H, D); k, v: (B, Sk, KV, D).
 
     float32 math. ``q_offset`` is the absolute position of q[:, 0];
     ``window`` > 0 keeps key j for query i iff i - window < j <= i.
     Returned contiguous, the kernel's layout, so that the ops after it
-    are the same on either device (the analysis counts them)."""
+    are the same on either device (the analysis counts them). A longer
+    prompt's queries go in blocks of ``Q_CHUNK``, as the JAX package's
+    XLA version scans blocks of 512: the float32 scores never exceed
+    (B, H, Q_CHUNK, Sk)."""
     h, d = q.shape[2], q.shape[3]
     rep = h // k.shape[2]
-    k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
+    k = k.repeat_interleave(rep, dim=2).float()
+    v = v.repeat_interleave(rep, dim=2).float()
     scale = 1.0 / math.sqrt(d)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    mask = visible_mask(q.shape[1], k.shape[1], q_offset, causal, window, q.device)
-    scores = torch.where(mask, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(
-        q.dtype).contiguous()
+
+    def block(qc, offset):
+        scores = torch.einsum("bqhd,bkhd->bhqk", qc.float(), k) * scale
+        mask = visible_mask(qc.shape[1], k.shape[1], offset, causal, window,
+                            q.device)
+        scores = torch.where(mask, scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+    if q.shape[1] <= Q_CHUNK:
+        return block(q, q_offset).contiguous()
+    return torch.cat([block(qc, q_offset + i * Q_CHUNK)
+                      for i, qc in enumerate(q.split(Q_CHUNK, dim=1))], dim=1)
 
 
 def decode_attention_ref(q, k, v, pos: int, *, window=0):

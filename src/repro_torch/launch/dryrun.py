@@ -14,13 +14,14 @@ one process on the CPU:
   bf16), placed by ``sharding.param_specs``, ``cache_specs`` and
   ``batch_spec``;
 * train: one ``make_train_step(cfg, mesh=)`` step. Prefill and decode:
-  under ``train.gathered`` (each block gathers its leaves as it runs, as
-  the step does), ``lm.prefill(mesh=)`` on this rank's rows, or
+  under ``train.gathered`` (each block takes its leaves as it runs, as
+  the step does), ``lm.prefill(mesh=)`` on this rank's rows (its blocks
+  tensor- and sequence-parallel over ``model``, as the step's), or
   ``lm.decode_step(mesh=)`` on its rows at the cache's last slot. The
   decode cache is stored as ``cache_specs`` places it (the KV sequence
-  over ``model``); the port computes attention whole on every rank, so
-  each leaf is gathered over ``model`` at use, like a parameter, and the
-  updated leaf is cut back to the stored chunk;
+  over ``model``); the port's decode computes every block whole on every
+  rank, so each leaf is gathered over ``model`` at use, like a
+  parameter, and the updated leaf is cut back to the stored chunk;
 * ``kernels.ops`` sends the fake CPU tensors to the plain versions; the
   analysis (``launch.hlo_analysis``) counts them at the ``ops``
   boundary, so the counts do not depend on that.

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 
 
@@ -85,8 +86,16 @@ class Attention(nn.Module):
 
 
 def attention_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
-                    pos=None, collect_kv=False):
+                    pos=None, collect_kv=False, shard=None):
     """x: (B, S, d). Returns (out, new_cache).
+
+    The heads are those of ``params``: with ``shard`` (``index`` and
+    ``size`` on ``model``; a ``sharding.ModelShard``) they are that
+    rank's ``torch.chunk`` piece of the q heads and the kv heads they
+    read (``sharding.kv_heads_of``), ``wo`` its rows, and ``out`` its
+    partial of the layer's output; a rank without a head adds zeros.
+    This is a plain function of the slices: the sum over ``model`` is
+    the caller's.
 
     Prefill: cache=None, positions (S,); ``collect_kv`` also returns the
     K/V cache (the last ``window`` positions with a window).
@@ -108,7 +117,8 @@ def attention_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = ops.attention(q, k, v, causal=True, window=cfg.window)
+        out = q if q.shape[2] == 0 else ops.attention(
+            q, *_kv_of_heads(k, v, cfg, shard), causal=True, window=cfg.window)
         new_cache = None
         if collect_kv:
             keep = min(k.shape[1], cfg.window) if cfg.window > 0 else k.shape[1]
@@ -136,6 +146,25 @@ def attention_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
         out = ops.decode_attention(q, ck, cv, pos_eff)
         new_cache = cache
     return torch.einsum("bshk,hkd->bsd", out, params.wo.to(cd)), new_cache
+
+
+def _kv_of_heads(k, v, cfg: ArchConfig, shard):
+    """The K/V the rank's q heads read, from those of its kv heads: as they
+    are where each kv head serves the same number of its q heads in
+    order (every whole layer; a shard where the kv heads divide, or its q
+    heads fall into whole groups), else one kv head per q head (its kv
+    head ``h // (H / KV)``), contiguous for the kernel."""
+    if shard is None:
+        return k, v
+    q0, q1 = sharding.heads_of(cfg.num_heads, shard.index, shard.size)
+    lo, hi = sharding.kv_heads_of(cfg, shard.index, shard.size)
+    g = cfg.num_heads // cfg.num_kv_heads
+    owner = [h // g - lo for h in range(q0, q1)]
+    per = (q1 - q0) // (hi - lo)
+    if owner == [j // per for j in range(q1 - q0)]:
+        return k, v
+    idx = torch.tensor(owner, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def _quant_kv(x):
@@ -176,6 +205,9 @@ class MLP(nn.Module):
 
 
 def mlp_apply(params, x, cfg: ArchConfig):
+    """Over ``model`` the tensor-parallel body: ``params`` hold this rank's
+    slice of ``ff`` (columns of ``wg``/``wu``, rows of ``wd``), and the
+    output is its partial."""
     cd = dtype_of(cfg.compute_dtype)
     x = x.to(cd)
     if cfg.mlp_type == "swiglu":

@@ -24,6 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import layers, mamba2, transformer
 from repro_torch.models.layers import dtype_of, param
 
@@ -57,12 +58,17 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> LanguageModel:
         return LanguageModel(cfg, gen).to(gen.device).requires_grad_(False)
 
 
-def embed(params, tokens, cfg: ArchConfig, patch_embeds=None):
+def embed(params, tokens, cfg: ArchConfig, patch_embeds=None, tp=None):
     """Token embeddings by ``F.embedding``: the reference's gather, and
     on the CPU its backward sums each row's gradients in a fixed order
     (an indexing backward's accumulation there is not). Over a mesh the
-    table is gathered for the lookup (``transformer.in_use``)."""
+    table is gathered for the lookup (``transformer.in_use``); with
+    ``tp`` (a ``sharding.ModelShard``) the embeddings are this rank's
+    rows of the sequence, the residual stream's layout."""
     cd = dtype_of(cfg.compute_dtype)
+    tokens = sharding.seq_rows(tokens, tp)
+    if patch_embeds is not None:
+        patch_embeds = sharding.seq_rows(patch_embeds, tp)
     with transformer.in_use(params, ("embed",)):
         if cfg.modality == "audio":
             # tokens: (B, S, n_codebooks) — sum the per-codebook embeddings
@@ -90,12 +96,16 @@ def teacher_forced(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
                    mesh=None):
     """Teacher-forced forward, recorded by autograd when grad mode is on
     (the stack checkpoints its blocks by ``cfg.remat``). Returns (logits,
-    aux). ``mesh``: see ``transformer.stack_apply`` (the MoE layers)."""
-    x = embed(params, tokens, cfg, patch_embeds)
+    aux). ``mesh``: see ``transformer.stack_apply`` (the residual stream
+    this rank's rows of the sequence over ``model``, gathered whole for
+    the final norm and the head)."""
+    tp = sharding.model_shard(mesh, tokens.shape[1])
+    x = embed(params, tokens, cfg, patch_embeds, tp)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, _, aux = transformer.stack_apply(params.stack, x, positions, cfg,
                                         mesh=mesh)
-    x = layers.rmsnorm_apply(params.final_norm, x, cfg)
+    x = layers.rmsnorm_apply(params.final_norm, sharding.gather_seq(x, tp),
+                             cfg)
     return unembed(params, x, cfg), aux
 
 
@@ -130,14 +140,17 @@ def prefill(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
     """Serving prefill: run the full prompt, build the KV/SSM cache, and
     return (next-token ids, last-position logits, caches). The K/V come
     back in the compute type, as the reference's do, also for an int8
-    decode cache. ``mesh``: see ``transformer.stack_apply`` (the MoE
-    layers; ``tokens`` are this rank's rows, and ``params`` are placed
-    and held under ``models.train.gathered``, which gathers each block's
-    leaves as it runs, the experts keeping their model shard)."""
-    x = embed(params, tokens, cfg, patch_embeds)
+    decode cache. ``mesh``: see ``transformer.stack_apply`` (``tokens``
+    are this rank's batch rows, and ``params`` are placed and held under
+    ``models.train.gathered``, which hands each block its leaves as it
+    runs: the tensor-parallel slices, the residual stream this rank's
+    rows of the sequence; the caches come back whole)."""
+    tp = sharding.model_shard(mesh, tokens.shape[1])
+    x = embed(params, tokens, cfg, patch_embeds, tp)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, caches, _ = transformer.stack_apply(params.stack, x, positions, cfg,
                                            collect_cache=True, mesh=mesh)
+    x = sharding.gather_seq(x, tp)
     x = layers.rmsnorm_apply(params.final_norm, x[:, -1:], cfg)
     logits = unembed(params, x, cfg)
     return torch.argmax(logits, dim=-1), logits, caches

@@ -65,13 +65,22 @@ def _causal_conv(x, w, bias, cache=None):
 
 
 def mamba_apply(params, x_in, cfg: ArchConfig, *, cache=None,
-                collect_state=False):
+                collect_state=False, norm_sum=None):
     """x_in: (B, S, d). cache: {"conv_x", "conv_b", "conv_c", "ssd"} or
     None. Returns (out (B, S, d), new_cache); the new cache holds new
-    tensors (the stack writes them into its buffers)."""
+    tensors (the stack writes them into its buffers).
+
+    The SSD heads are those of ``params``: over ``model`` the
+    tensor-parallel body, whose leaves are this rank's heads (``wdt``'s
+    columns, ``a_log``, ``d_skip``, ``dt_bias``) and their ``d_inner``
+    channels (``wz``, ``wx``, ``conv_x``, ``conv_bias_x``,
+    ``norm_scale``, rows of ``out_proj``), ``wb``/``wc`` and their convs
+    whole; the output is its partial and the state its heads'. The gated
+    norm's mean square is over the whole ``d_inner``: ``norm_sum`` sums
+    the rank's (B, S, 1) sum of squares over ``model``."""
     cd = dtype_of(cfg.compute_dtype)
     bsz, s, _ = x_in.shape
-    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    h, p = params.a_log.shape[0], cfg.ssm_head_dim
     x_in = x_in.to(cd)
 
     z = x_in @ params.wz.to(cd)
@@ -108,10 +117,14 @@ def mamba_apply(params, x_in, cfg: ArchConfig, *, cache=None,
         new_cache = {"conv_x": ncx, "conv_b": ncb, "conv_c": ncc,
                      "ssd": state}
 
-    y = y.reshape(bsz, s, cfg.d_inner)
+    y = y.reshape(bsz, s, h * p)
     # gated RMSNorm (mamba2: norm(y * silu(z))), plain as in the reference
     y32 = (y * F.silu(z)).float()
-    rms = torch.sqrt(torch.mean(y32 * y32, dim=-1, keepdim=True) + 1e-6)
+    if norm_sum is None:
+        ms = torch.mean(y32 * y32, dim=-1, keepdim=True)
+    else:
+        ms = norm_sum(torch.sum(y32 * y32, dim=-1, keepdim=True)) / cfg.d_inner
+    rms = torch.sqrt(ms + 1e-6)
     y = ((y32 / rms) * params.norm_scale.float()).to(cd)
     return y @ params.out_proj.to(cd), new_cache
 

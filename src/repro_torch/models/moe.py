@@ -242,11 +242,15 @@ def _dispatch_sorted(params, xs, group_sizes, cfg_loc: ArchConfig, cd,
 def moe_apply(params, x, cfg: ArchConfig, mesh=None):
     """The block's entry. Without a mesh ``moe_parallel`` has no effect, as
     in the reference. With one (``sharding.Mesh``; bound to a process
-    group unless it has one device), ``x`` is this rank's rows and
-    ``params`` hold its model shard of the experts: the shard body's
-    partial is summed over ``model`` and ``aux`` averaged over the batch
-    axes (when the batch does not divide, every rank holds the same rows
-    and the mean of equal values is that value)."""
+    group unless it has one device), ``x`` is this rank's batch rows of
+    the whole sequence (gathered by the block) and ``params`` hold its
+    model shard of the experts: the shard body's partial is summed over
+    ``model`` into this rank's rows of the sequence by
+    ``sharding.scatter_seq`` (a reduce-scatter; an all-reduce where the
+    sequence does not divide ``model``, as at decode), and ``aux`` is
+    averaged over the batch axes (when the batch does not divide, every
+    rank holds the same rows and the mean of equal values is that
+    value)."""
     if mesh is None:
         return moe_apply_local(params, x, cfg)
     m = mesh.shape["model"]
@@ -255,7 +259,7 @@ def moe_apply(params, x, cfg: ArchConfig, mesh=None):
                                     sharding.coordinate(mesh, "model"), m)
     else:
         y, aux = moe_apply_local(params, x, cfg)
-    y = sharding.all_reduce(y, mesh, ("model",))
+    y = sharding.scatter_seq(y, sharding.model_shard(mesh, x.shape[1]))
     bax = sharding.batch_axes(mesh)
     aux = sharding.all_reduce(aux, mesh, bax) / sharding.nbatch(mesh)
     return y, aux

@@ -13,8 +13,9 @@ the one step. The gradients come from autograd through
 and SSD kernels, and their backward is the VJP of the plain versions.
 
 With a ``mesh`` (``distributed.sharding.Mesh``) the step is FSDP with
-gather-on-use over a live process group of ``mesh.size`` ranks, this
-rank holding ``mesh.devices.flat[rank]``:
+gather-on-use, tensor- and sequence-parallel over ``model``, over a live
+process group of ``mesh.size`` ranks, this rank holding
+``mesh.devices.flat[rank]``:
 
 * ``opt_init`` places the parameters on the mesh by
   ``sharding.param_specs`` (each becomes a ``DTensor`` parameter holding
@@ -25,33 +26,47 @@ rank holding ``mesh.devices.flat[rank]``:
   rank; with ``grad_accum`` the rows of each microbatch, the global
   batch split first, as the reference splits it) and runs the unchanged
   ``lm.loss_fn`` on a model that holds this rank's shards as plain
-  tensors. Each block gathers its leaves whole as it runs and drops them
-  after (``_GatherOnUse`` under ``transformer.on_use``: one all-gather
-  an axis of size above 1; the MoE expert leaves over the batch axes
-  only, keeping their ``model`` shard for the shard bodies of
-  ``moe.moe_apply``); the embedding and the head are gathered at each
-  use. A block recomputed under remat gathers again; under
+  tensors. Over ``model`` the residual stream is this rank's rows of the
+  sequence where the sequence divides (``transformer``), and each block
+  runs its attention, MLP, Mamba or MoE body on this rank's slice
+  (``sharding.tp_slice``: its q heads and the kv heads they read, its
+  ``ff`` columns, its SSD heads; the experts' ``model`` shard). A block
+  takes its leaves as it runs and drops them after (``_GatherOnUse``
+  under ``transformer.on_use``): a leaf whose stored ``model`` shard is
+  its slice is all-gathered over the batch axes only; another is
+  gathered whole and cut to the slice (``wq`` where the heads do not
+  divide ``model`` is stored whole over it). The embedding and the head
+  are gathered whole at each use, and the head and the loss run on the
+  whole sequence (``sharding.gather_seq``), so every model rank computes
+  the same loss. A block recomputed under remat gathers again; under
   ``remat="none"`` a block that gathers runs as ``"full"``, so autograd
-  keeps no gathered leaf. The kernels run as they do without a mesh;
+  keeps no gathered leaf. The kernels run at the rank's local shapes;
 * each gathered use's gradient is reduce-scattered, summed, back to the
   shard, so the microbatches accumulate shard-sized gradients (the
   reference's carry is sharded like the parameters);
 * what is left of each gradient's sum, over the axes of size above 1 on
-  which the stored shard is replicated (norms, biases, dims that do not
-  divide), is one all-reduce an axis for each bucket of gradients of a
-  type summed over the same axes, in one flat buffer; every gradient is
-  divided by the world (a leaf used whole gets the mean over the ranks;
-  an expert shard the mean over the batch axes of the ``model``-summed
-  partial's gradient, which carries a factor of the model size);
+  which the stored shard is replicated (norms, biases, the slices cut
+  from a leaf stored whole, dims that do not divide), is one all-reduce
+  an axis for each bucket of gradients of a type summed over the same
+  axes, in one flat buffer; every gradient is divided by the world.
+  Every leaf's gradient summed once over ``model`` carries a factor of
+  the model size, since the loss is computed on every model rank: a
+  leaf used whole (the head, the final norm) sums that many equal
+  terms; a norm on the rows, the embedding's rows and a tensor-parallel
+  slice get it from the reduce-scatter of the head's gathered input,
+  which sums the ranks' equal gradients into each rank's rows (where the
+  rows stay whole, a slice gets it from the all-reduce of its partial's
+  gradient, and the ranks' terms of a norm sum to it); a slice cut from
+  a leaf stored whole adds its slice among zeros. So the division leaves
+  the mean over the batch axes;
 * the clip norm counts every element once: a shard replicated over an
   axis is counted on that axis's rank 0 only, and the sum crosses all
   ranks; AdamW runs on the local shards and updates the moments in
   place, like the parameters.
 
 Over axes of size 1 a shard is the whole leaf: nothing is gathered,
-scattered or reduced, so at a world of 1 the step is the mesh-free one
-bit for bit. Tensor-parallel compute of attention, the MLP and Mamba
-(sharded products) is not done: those leaves run whole.
+cut, scattered or reduced, so at a world of 1 the step is the mesh-free
+one bit for bit.
 """
 from __future__ import annotations
 
@@ -158,38 +173,40 @@ def make_train_step(cfg: ArchConfig, mesh=None, clip_norm: float = 1.0,
 _EXPERT = re.compile(r"(^|\.)moe\.w[gud]$")
 
 
-class _Axis(NamedTuple):
-    """One mesh axis a stored shard is gathered over at use: the axis's
-    group and size, this rank's index on it, the tensor dim it cuts and
-    that dim's whole length (``torch.chunk``'s pieces)."""
-    group: object
-    size: int
-    index: int
-    dim: int
-    length: int
-
-
 class _Layout(NamedTuple):
     store: list     # placements of the stored shard (its spec's)
-    gather: tuple   # ``_Axis``es (size > 1, mesh order) gathered at use
+    gather: tuple   # ``sharding.Axis``es (size > 1, mesh order) gathered
+                    # for the train step and prefill
+    cut: tuple      # then (dim, start, stop) of the slice the block's
+                    # tensor-parallel body takes (``sharding.tp_slice``)
+    whole: tuple    # ``Axis``es gathered for decode (every axis the leaf
+                    # is sharded on; the MoE experts keep ``model``)
     reduce: tuple   # axes (size > 1) the use copy and the shard both
                     # replicate: the gradient's all-reduce
     counted: bool   # whether this rank counts its shard in the clip norm
 
 
 def _layouts(params, cfg: ArchConfig, mesh) -> dict:
-    """Each parameter's ``_Layout`` on the bound ``mesh``. The copy the
-    layers use is whole, but an MoE expert leaf keeps its ``model`` shard.
-    Its gradient sums over every axis the use copy is replicated on: over
-    ``gather`` by the reduce-scatters of the gather's backward, over
-    ``reduce`` by an all-reduce. A shard replicated over an axis is
-    counted in the norm on that axis's rank 0 only."""
+    """Each parameter's ``_Layout`` on the bound ``mesh``. Decode uses
+    every leaf whole but the MoE experts, which keep their ``model``
+    shard. The train step and prefill use the slice each block's
+    tensor-parallel body computes on: a leaf whose stored ``model`` shard
+    is that slice keeps it and is gathered over the batch axes only;
+    another (stored whole over ``model``, as ``wq`` where the heads do
+    not divide, or cut elsewhere) is gathered whole and cut to the slice.
+    A gradient sums over every axis the use copy is replicated on: over
+    the gathered axes by the reduce-scatters of the gather's backward
+    (the cut's backward pads the slice with zeros), over ``reduce`` by an
+    all-reduce. A shard replicated over an axis is counted in the norm on
+    that axis's rank 0 only."""
     shapes = {k: p.shape for k, p in params.named_parameters()}
+    m = mesh.shape.get("model", 1)
+    index = sharding.coordinate(mesh, "model") if m > 1 else 0
     out = {}
     for name, spec in sharding.param_specs(params, cfg, mesh).items():
         store = sharding.placements(spec, mesh)
         keep_model = _EXPERT.search(name) is not None
-        gather, reduce = [], []
+        whole, reduce, model_ax = [], [], None
         for axis, s in zip(mesh.axis_names, store):
             if mesh.shape[axis] == 1 or (keep_model and axis == "model"
                                          and s.is_shard()):
@@ -197,55 +214,29 @@ def _layouts(params, cfg: ArchConfig, mesh) -> dict:
             if s.is_replicate():
                 reduce.append(axis)
                 continue
-            if any(a.dim == s.dim for a in gather):
+            if any(a.dim == s.dim for a in whole):
                 raise ValueError(f"{name}: spec {spec} cuts one dim over "
                                  "two axes")
-            gather.append(_Axis(mesh.groups.get_group(axis),
-                                mesh.shape[axis],
-                                sharding.coordinate(mesh, axis), s.dim,
-                                shapes[name][s.dim]))
+            whole.append(sharding.Axis(mesh.groups.get_group(axis),
+                                       mesh.shape[axis],
+                                       sharding.coordinate(mesh, axis), s.dim,
+                                       shapes[name][s.dim]))
+            if axis == "model":
+                model_ax = whole[-1]
+        gather, cut = whole, ()
+        piece = sharding.tp_slice(name, cfg, index, m)
+        if piece is not None:
+            if model_ax is not None and (model_ax.dim,) + sharding.heads_of(
+                    model_ax.length, index, m) == piece:
+                gather = [a for a in whole if a is not model_ax]
+            else:
+                cut = piece
         counted = all(sharding.coordinate(mesh, a) == 0
                       for a, s in zip(mesh.axis_names, store)
                       if s.is_replicate())
-        out[name] = _Layout(store, tuple(gather), tuple(reduce), counted)
+        out[name] = _Layout(store, tuple(gather), cut, tuple(whole),
+                            tuple(reduce), counted)
     return out
-
-
-# ``all_gather_single`` / ``reduce_scatter_single`` where torch has them
-# (``*_tensor`` is their deprecated name there)
-_gather_into = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
-_scatter_from = getattr(dist, "reduce_scatter_single",
-                        dist.reduce_scatter_tensor)
-
-
-def _padded(x, rows: int):
-    """``x`` (its cut dim leading) padded with zero rows to ``rows``."""
-    if x.shape[0] == rows:
-        return x.contiguous()
-    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
-
-
-def _all_gather(x, ax: _Axis):
-    """The whole of ``ax.dim`` from each rank's ``torch.chunk`` piece:
-    each piece padded to the chunk size, one all-gather, the padding cut
-    off."""
-    c = -(-ax.length // ax.size)
-    x = _padded(x.movedim(ax.dim, 0), c)
-    out = x.new_empty((c * ax.size,) + x.shape[1:])
-    _gather_into(out, x, group=ax.group)
-    return out[:ax.length].movedim(0, ax.dim).contiguous()
-
-
-def _reduce_scatter(g, ax: _Axis):
-    """The sum over the group of ``g`` (whole along ``ax.dim``), cut to
-    this rank's ``torch.chunk`` piece: one reduce-scatter of the padded
-    gradient."""
-    c = -(-ax.length // ax.size)
-    g = _padded(g.movedim(ax.dim, 0), c * ax.size)
-    out = g.new_empty((c,) + g.shape[1:])
-    _scatter_from(out, g, group=ax.group)
-    keep = max(0, min(c, ax.length - ax.index * c))
-    return out[:keep].movedim(0, ax.dim).contiguous()
 
 
 class _GatherOnUse(torch.autograd.Function):
@@ -257,13 +248,13 @@ class _GatherOnUse(torch.autograd.Function):
     def forward(ctx, shard, axes):
         ctx.axes = axes
         for ax in axes:
-            shard = _all_gather(shard, ax)
+            shard = sharding.all_gather(shard, ax)
         return shard
 
     @staticmethod
     def backward(ctx, grad):
         for ax in reversed(ctx.axes):
-            grad = _reduce_scatter(grad, ax)
+            grad = sharding.reduce_scatter(grad, ax)
         return grad, None
 
 
@@ -289,22 +280,32 @@ def _swapped(module, tensors: dict):
 @contextlib.contextmanager
 def _sharded(params, shards: dict, layouts: dict):
     """The placed model holding ``shards`` (plain tensors, by name) for
-    the block, each gathered where a layer uses it. Where nothing is
-    gathered (every shard axis of size 1) no hook is set, and the layers
-    run as they do without a mesh."""
-    axes = {id(t): layouts[k].gather for k, t in shards.items()
-            if layouts[k].gather}
+    the block, each gathered (and cut) where a layer uses it. Where
+    nothing is gathered or cut (every shard axis of size 1) no hook is
+    set, and the layers run as they do without a mesh."""
+    held = {id(t): layouts[k] for k, t in shards.items()
+            if layouts[k].whole or layouts[k].cut}
+
+    def use_copy(t, whole):
+        lay = held[id(t)]
+        axes = lay.whole if whole else lay.gather
+        u = _GatherOnUse.apply(t, axes) if axes else t
+        if lay.cut and not whole:
+            dim, lo, hi = lay.cut
+            u = u.narrow(dim, lo, hi - lo)
+        return u
 
     @contextlib.contextmanager
-    def use(module, names=None):
-        """``module``'s leaves gathered (``_GatherOnUse``) for the block."""
-        whole = {k: _GatherOnUse.apply(t, axes[id(t)])
-                 for k, t in module.named_parameters()
-                 if id(t) in axes and (names is None or k in names)}
-        with _swapped(module, whole):
+    def use(module, names=None, whole=False):
+        """``module``'s leaves as the layers use them for the block:
+        gathered (``_GatherOnUse``) and cut to the tensor-parallel slice,
+        or with ``whole`` (decode) gathered whole."""
+        leaves = {k: use_copy(t, whole) for k, t in module.named_parameters()
+                  if id(t) in held and (names is None or k in names)}
+        with _swapped(module, leaves):
             yield
 
-    hook = transformer.on_use(use) if axes else contextlib.nullcontext()
+    hook = transformer.on_use(use) if held else contextlib.nullcontext()
     with _swapped(params, shards), hook:
         yield params
 

@@ -15,20 +15,26 @@ reference's; the hybrid's are nested, ``{"groups": (n_groups, period,
 updates them in place and returns the same dict. ``aux`` is the MoE
 blocks' router loss summed over the layers (0.0 without experts).
 
-``mesh`` (a ``distributed.sharding.Mesh``) reaches the blocks' MoE FFN,
-the only layer that acts on it here (``moe.moe_apply``: each rank's rows,
-its expert shard, the partial summed over ``model``). The reference's
-``constrain`` calls on the blocks' activations (residual stream, q/k/v,
-the MLP hidden, the Mamba projections) are GSPMD layout hints with no
-numeric effect; the step runs each rank's forward on plain local tensors,
-so they have no counterpart.
+``mesh`` (a ``distributed.sharding.Mesh``) makes the train step and
+prefill tensor- and sequence-parallel over ``model``, the layout the
+reference's ``constrain`` hints pin (``sharding.ModelShard``): between
+blocks the residual stream is this rank's rows of the sequence (whole
+where the sequence does not divide ``model``). A block normalises its
+rows, gathers the sequence (``sharding.gather_seq``), runs its body on
+this rank's slices (``layers.attention_apply`` on its heads,
+``layers.mlp_apply`` on its ``ff`` slice, ``mamba2.mamba_apply`` on its
+SSD heads, ``moe.moe_apply`` on its expert shard), sums the partial
+over ``model`` into its rows (``sharding.scatter_seq``) and adds it to
+the residual. Prefill's cache comes back whole: the K/V heads and the
+Mamba state are all-gathered. Decode runs every block whole on every
+rank (the MoE partial summed over ``model``).
 
 Over a mesh the model holds this rank's stored shards, and ``on_use``
 names the hook that hands a module's leaves over as the layers use them
-(``models/train.py``: gathered, the MoE experts keeping their ``model``
-shard). Each block takes its leaves inside the function it runs (and
-checkpoints), and gives them back after it; the embedding and the head
-are taken where ``lm`` uses them (``in_use``).
+(``models/train.py``: gathered and cut to the body's slice, or gathered
+whole for decode). Each block takes its leaves inside the function it
+runs (and checkpoints), and gives them back after it; the embedding and
+the head are taken where ``lm`` uses them (``in_use``).
 
 In training (grad mode on, no caches) each block runs under
 ``cfg.remat``, as the reference's ``_maybe_remat``: ``"full"`` keeps only
@@ -49,6 +55,7 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers, mamba2, moe
 
 
@@ -66,17 +73,24 @@ class DenseBlock(nn.Module):
 
 
 def dense_block_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
-                      pos=None, collect_cache=False, mesh=None):
-    """Returns (x, new_cache, aux)."""
+                      pos=None, collect_cache=False, mesh=None, tp=None):
+    """Returns (x, new_cache, aux). With ``tp`` (a ``sharding.ModelShard``)
+    ``x`` is this rank's rows and the leaves its slices."""
     h, new_cache = layers.attention_apply(
-        params.attn, layers.rmsnorm_apply(params.ln1, x, cfg), positions, cfg,
-        cache=cache, pos=pos, collect_kv=collect_cache)
-    x = x + h
-    normed = layers.rmsnorm_apply(params.ln2, x, cfg)
+        params.attn, sharding.gather_seq(
+            layers.rmsnorm_apply(params.ln1, x, cfg), tp), positions, cfg,
+        cache=cache, pos=pos, collect_kv=collect_cache, shard=tp)
+    if tp is not None and new_cache is not None:
+        kv = [sharding.kv_heads_of(cfg, r, tp.size) for r in range(tp.size)]
+        new_cache = {k: sharding.gather_ranges(t, tp, 2, kv, cfg.num_kv_heads)
+                     for k, t in new_cache.items()}
+    x = x + sharding.scatter_seq(h, tp)
+    normed = sharding.gather_seq(layers.rmsnorm_apply(params.ln2, x, cfg), tp)
     if cfg.is_moe:
         f, aux = moe.moe_apply(params.moe, normed, cfg, mesh=mesh)
     else:
-        f, aux = layers.mlp_apply(params.mlp, normed, cfg), 0.0
+        f, aux = sharding.scatter_seq(layers.mlp_apply(params.mlp, normed, cfg),
+                                      tp), 0.0
     return x + f, new_cache, aux
 
 
@@ -88,11 +102,25 @@ class MambaBlock(nn.Module):
 
 
 def mamba_block_apply(params, x, cfg: ArchConfig, *, cache=None,
-                      collect_cache=False):
+                      collect_cache=False, tp=None):
+    """Returns (x, new_cache, 0.0); ``tp`` as in ``dense_block_apply``:
+    the gated norm's sum of squares is summed over ``model``."""
+    norm_sum = None if tp is None else functools.partial(
+        sharding.all_reduce, mesh=tp.mesh, axes=("model",))
     h, new_cache = mamba2.mamba_apply(
-        params.mix, layers.rmsnorm_apply(params.ln, x, cfg), cfg,
-        cache=cache, collect_state=collect_cache)
-    return x + h, new_cache, 0.0
+        params.mix, sharding.gather_seq(
+            layers.rmsnorm_apply(params.ln, x, cfg), tp), cfg,
+        cache=cache, collect_state=collect_cache, norm_sum=norm_sum)
+    if tp is not None and new_cache is not None:
+        heads = [sharding.heads_of(cfg.ssm_heads, r, tp.size)
+                 for r in range(tp.size)]
+        cx = new_cache["conv_x"]
+        cx = cx.reshape(cx.shape[:2] + (-1, cfg.ssm_head_dim))
+        new_cache = {**new_cache, "ssd": sharding.gather_ranges(
+            new_cache["ssd"], tp, 1, heads, cfg.ssm_heads),
+            "conv_x": sharding.gather_ranges(cx, tp, 2, heads, cfg.ssm_heads)
+            .flatten(2)}
+    return x + sharding.scatter_seq(h, tp), new_cache, 0.0
 
 
 # ============================ remat ===========================================
@@ -109,7 +137,8 @@ def _remat(apply, cfg: ArchConfig, blk, *args, **kwargs):
     """``apply(blk, *args, **kwargs)`` under the config's remat policy when
     autograd records, else as it stands, with ``blk``'s leaves handed
     over by the gather-on-use hook set now (``on_use``; a recompute uses
-    the same hook). Where one is set, ``"none"`` runs as ``"full"``. The
+    the same hook): cut to the body's slices where ``kwargs["tp"]`` is
+    set, else whole. Where one is set, ``"none"`` runs as ``"full"``. The
     blocks draw no random numbers, so the RNG state is not saved for the
     recompute."""
     use = _on_use
@@ -140,11 +169,12 @@ _on_use = None      # the hook ``on_use`` names for its block, else None
 
 @contextlib.contextmanager
 def on_use(hook):
-    """For the block, ``hook(module, names)`` is the context in which
-    ``module``'s leaves (those of ``names``, or all) are the copies the
-    layers compute on (set only where a leaf is gathered). The blocks
-    take the hook when they run, so a recompute in the backward gathers
-    through the same one."""
+    """For the block, ``hook(module, names, whole=False)`` is the context
+    in which ``module``'s leaves (those of ``names``, or all) are the
+    copies the layers compute on: the tensor-parallel body's slices, or
+    with ``whole`` the whole leaves (set only where a leaf is gathered or
+    cut). The blocks take the hook when they run, so a recompute in the
+    backward gathers through the same one."""
     global _on_use
     if _on_use is not None:
         raise RuntimeError("a gather-on-use hook is already set")
@@ -167,7 +197,7 @@ def _block(apply, use, blk, *args, **kwargs):
     (``None``: as they stand) for the call."""
     if use is None:
         return apply(blk, *args, **kwargs)
-    with use(blk):
+    with use(blk, whole=kwargs.get("tp") is None):
         return apply(blk, *args, **kwargs)
 
 
@@ -205,7 +235,7 @@ def _stack(caches):
 
 
 def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache,
-         mesh=None):
+         mesh=None, tp=None):
     """Walk ``blocks`` (all dense or all Mamba). Decode writes each block's
     new cache into its view ``caches[k][i]``; prefill returns the blocks'
     caches stacked in order."""
@@ -216,10 +246,10 @@ def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache,
         if isinstance(blk, DenseBlock):
             x, nc, a = _remat(dense_block_apply, cfg, blk, x, positions, cfg,
                               cache=view, pos=pos,
-                              collect_cache=collect_cache, mesh=mesh)
+                              collect_cache=collect_cache, mesh=mesh, tp=tp)
         else:
             x, nc, a = _remat(mamba_block_apply, cfg, blk, x, cfg,
-                              cache=view, collect_cache=collect_cache)
+                              cache=view, collect_cache=collect_cache, tp=tp)
         aux = aux + a
         if decode:
             for k, new in nc.items():
@@ -234,11 +264,15 @@ def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache,
 
 def stack_apply(params, x, positions, cfg: ArchConfig, *, caches=None,
                 pos=None, collect_cache=False, mesh=None):
-    """Returns (x, caches_or_None, aux_sum)."""
-    kw = dict(pos=pos, collect_cache=collect_cache, mesh=mesh)
+    """Returns (x, caches_or_None, aux_sum). Over a ``mesh`` with a
+    ``model`` axis above 1, the train step and prefill take ``x`` as this
+    rank's rows (``sharding.seq_rows``) and return them; decode takes and
+    returns the whole ``x``."""
+    decode = caches is not None
+    tp = None if decode else sharding.model_shard(mesh, positions.shape[0])
+    kw = dict(pos=pos, collect_cache=collect_cache, mesh=mesh, tp=tp)
     if cfg.family != "hybrid":
         return _run(params.blocks, x, positions, cfg, caches=caches, **kw)
-    decode = caches is not None
 
     def view(name, g):
         return {k: v[g] for k, v in caches[name].items()} if decode else None

@@ -7,15 +7,23 @@
 * ``params`` (fake init only) equals the reference's parameter tree for
   all ten archs, and ``cfg.param_count()`` of both packages but for the
   leaves that formula omits on four archs (``FORMULA_GAP``);
-* a cell's flops equal the analysis of the mesh-free step, prefill or
-  decode at this rank's rows: nothing but the MoE layer runs sharded;
+* a cell's flops equal the analysis of the mesh-free step or prefill at
+  this rank's batch rows on a model whose blocks hold this rank's
+  tensor-parallel slices (``sharding.tp_slice``: the shard bodies run
+  whole-sequence, as the mesh runs them between ``gather_seq`` and
+  ``scatter_seq``), and of the mesh-free decode at its rows on the whole
+  model (decode runs every block whole);
 * the train cell's collective bytes equal the ring formula over its
-  gathers on use (a block's twice under remat), the reduce-scatters of
-  their gradients and its bucketed sums of the replicated leaves, counted
-  by hand from ``param_specs``; ``argument_bytes`` equals this rank's
-  shards' bytes;
+  gathers on use (a block's twice under remat; the tensor-parallel
+  leaves over ``data`` only), the reduce-scatters of their gradients,
+  its bucketed sums of the replicated leaves, and the residual stream's
+  gathers and reduce-scatters over ``model`` (each block's two bodies in
+  the forward, the recompute and the backward; the final norm's),
+  counted by hand from ``param_specs``; ``argument_bytes`` equals this
+  rank's shards' bytes;
 * llama3-405b x ``train_4k`` at 1 and 2 layers: a layer adds less to
-  the peak than one block's whole leaves;
+  the peak than one block's whole leaves; llama3-405b x ``prefill_32k``
+  at 1 layer peaks under an eighth of the whole-heads attention scores;
 * llama3-405b x ``long_500k`` is ``skipped`` with the reference's reason;
 * every fake group is torn down after its cell.
 """
@@ -110,13 +118,32 @@ def _local_rows(cfg, shape):
             for k, v in tconf.input_specs(cfg, shape).items()}
 
 
+def _rank_slices(params, cfg, index):
+    """``params`` with each block leaf cut to model rank ``index``'s
+    tensor-parallel slice (``sharding.tp_slice`` over ``MODEL``), in
+    place."""
+    for name, p in list(params.named_parameters()):
+        piece = sharding.tp_slice(name, cfg, index, MODEL)
+        if piece is not None:
+            dim, lo, hi = piece
+            owner, _, leaf = name.rpartition(".")
+            params.get_submodule(owner)._parameters[leaf] = torch.nn.Parameter(
+                p.detach().narrow(dim, lo, hi - lo).clone())
+    return params
+
+
 @pytest.mark.parametrize("arch,shape,layers", CELLS)
 def test_flops_are_the_mesh_free_call_at_the_local_rows(records, arch, shape,
                                                         layers):
+    """Rank 0 of the (16, 16) mesh: smollm-135m's one q head of nine and
+    the kv head it reads, its 96 of 1536 ``ff`` columns; mamba2-2.7b's 5
+    of 80 SSD heads."""
     cfg = tconf.get_arch(arch, num_layers=layers)
     sh = tconf.SHAPES[shape]
     with FakeTensorMode():
         params = lm.LanguageModel(cfg)
+        if sh["kind"] != "decode":
+            _rank_slices(params, cfg, 0)
         rows = _local_rows(cfg, shape)
         if sh["kind"] == "train":
             params.requires_grad_(True)
@@ -173,24 +200,40 @@ def test_argument_bytes_are_the_local_shards(records):
 def test_train_collectives_are_the_ring_formula_by_hand(records):
     """Each leaf sharded on the mesh is all-gathered at each use, axis by
     axis in mesh order (over both axes: the first gather's output a
-    sixteenth of the leaf, the second's the whole leaf), each microbatch:
-    a block's leaves twice under ``remat="full"`` (the forward and the
-    recompute), the tied embedding once at the lookup and once at the
-    head. Each use's gradient is reduce-scattered back in reverse order
-    (over both axes: a sixteenth of the leaf, then a 256th), at the
-    reference's ``g - 1`` on the scattered output. The shard-sized
-    gradients of the leaves replicated over an axis are all-reduced over
-    it in their bucket; then the grad norm's float32 scalar over both
-    axes, and the loss, nll and aux over ``data``."""
+    sixteenth of the leaf, the second's the whole leaf; a tensor-parallel
+    leaf whose ``model`` shard is its body's slice, the MLP's here, over
+    ``data`` only: a sixteenth), each microbatch: a block's leaves twice
+    under ``remat="full"`` (the forward and the recompute), the tied
+    embedding once at the lookup and once at the head. Each use's
+    gradient is reduce-scattered back in reverse order (over both axes: a
+    sixteenth of the leaf, then a 256th), at the reference's ``g - 1`` on
+    the scattered output. The shard-sized gradients of the leaves
+    replicated over an axis are all-reduced over it in their bucket (the
+    attention's, stored whole over ``model`` since 9 heads do not divide
+    16, each rank's slice among zeros); then the grad norm's float32
+    scalar over both axes, and the loss, nll and aux over ``data``. Over
+    ``model`` the residual stream moves: each block's two bodies gather
+    the (16, 4096, 576) bf16 sequence from the rows and reduce-scatter
+    their partials back, in the forward and again in the recompute (which
+    stops once it has rebuilt what the backward reads: the MLP partial's
+    reduce-scatter is not run again), and the backward does the
+    conjugates (a reduce-scatter for each gather, an all-gather for each
+    reduce-scatter); the final norm's gather once each way."""
     cfg, leaves, _ = _smollm_layout()
     assert cfg.remat == "full" and cfg.tie_embeddings
     ring_ag, ring_rs, ring_ar = 15 / 16, 15, 2 * 15 / 16
-    gather = scatter = reduce = 0.0
+    rows = tconf.SHAPES["train_4k"]["global_batch"] // DATA
+    act = rows * tconf.SHAPES["train_4k"]["seq_len"] * cfg.d_model * 2
+    gather = cfg.grad_accum * (6 * cfg.num_layers + 1) * act * ring_ag
+    scatter = cfg.grad_accum * (5 * cfg.num_layers + 1) * act / MODEL * ring_rs
+    reduce = 0.0
     for name, (n, shape, spec) in leaves.items():
         full, pieces = n * 2, _shards(shape, spec)
         uses = 2 if name == "embed" else 1
         passes = 2 if name.startswith("stack.") else 1
-        if pieces == DATA * MODEL:
+        if pieces == DATA * MODEL and sharding.tp_slice(name, cfg, 0, MODEL):
+            gathered, scattered = full / MODEL, full / pieces
+        elif pieces == DATA * MODEL:
             gathered, scattered = full / MODEL + full, full / MODEL + full / pieces
         elif pieces > 1:
             gathered, scattered = full, full / pieces
@@ -230,19 +273,42 @@ def test_a_train_step_holds_one_block_whole_at_a_time(tmp_path):
     assert 0 < peaks[1] - peaks[0] < whole
 
 
+def test_prefill_shards_attention_heads_over_model(tmp_path):
+    """llama3-405b x ``prefill_32k`` on (16, 16) at 1 layer: each rank's
+    attention runs 8 of the 128 heads over its 2 rows of the whole 32768
+    positions (the kernel's flops at those shapes), and the rank peaks
+    under an eighth of the whole-heads float32 scores (2, 128, 32768,
+    32768); with whole heads on every rank the trace held two such
+    tensors at once."""
+    rec = dryrun.run_cell("llama3-405b", "prefill_32k", multi_pod=False,
+                          overrides={"num_layers": 1}, results_dir=tmp_path,
+                          verbose=False)
+    assert rec["status"] == "ok", rec.get("trace")
+    cfg = tconf.get_arch("llama3-405b")
+    sh = tconf.SHAPES["prefill_32k"]
+    rows, s = sh["global_batch"] // DATA, sh["seq_len"]
+    heads = cfg.num_heads // MODEL
+    assert rec["hlo"]["by_op"]["ops.attention"] == \
+        4.0 * rows * heads * s * s * cfg.head_dim
+    scores = rows * cfg.num_heads * s * s * 4
+    assert rec["memory"]["peak_device_bytes"] < scores / 8
+
+
 def test_microbatches_smaller_than_the_batch_shards_run_whole(tmp_path):
     """The multi-pod mesh has 32 batch shards: ``train_4k``'s 256 rows in
     16 microbatches of 16 do not divide over them, so every rank runs each
     microbatch whole, as the reference's step does (its global batch split
-    first; the batch constraint dropped where it does not divide). The
-    step once failed here, splitting 8 local rows into 16."""
+    first; the batch constraint dropped where it does not divide), each
+    block on rank 0's tensor-parallel slices. The step once failed here,
+    splitting 8 local rows into 16."""
     over = {"num_layers": 1, "grad_accum": 16}
     rec = dryrun.run_cell("smollm-135m", "train_4k", multi_pod=True,
                           overrides=over, results_dir=tmp_path, verbose=False)
     assert rec["status"] == "ok", rec.get("trace")
     cfg = tconf.get_arch("smollm-135m", **over)
     with FakeTensorMode():
-        params = lm.LanguageModel(cfg).requires_grad_(True)
+        params = _rank_slices(lm.LanguageModel(cfg), cfg, 0)
+        params.requires_grad_(True)
         opt_init, step = train.make_train_step(cfg)
         batch = tconf.input_specs(cfg, "train_4k", device="cpu")
         got = hlo_analysis.analyze(step, params, opt_init(params), batch)

@@ -10,7 +10,11 @@ tokens and 4 greedy decode steps (``tests/torch_mesh_worker.py``'s
 ``generate``):
 
 * over a gloo (1, 2) world, reduced smollm-135m and mixtral-8x7b (the
-  tensor-parallel MoE body) equal the mesh-free port within 1e-5;
+  tensor-parallel attention, MLP and MoE bodies, the residual stream
+  the rank's rows of the prompt, the cache gathered whole) equal the
+  mesh-free port within 1e-5; and mixtral with a prompt of 15, which
+  the model axis does not divide (the rows whole on both ranks, the
+  partials all-reduced);
 * the same mixtral run equals the reference's jitted ``lm.prefill(mesh=)``
   and ``decode_step(mesh=)`` on a (1, 2) JAX host mesh, from the
   reference's own parameters, within ``tests/test_torch_lm.py``'s
@@ -58,14 +62,17 @@ def runs(tmp_path_factory):
                 "tmp": tmp / "w12"}
 
 
-def _mesh_free(arch, source, tmp):
+def _mesh_free(arch, source, tmp, *seq):
     cfg, params = worker.case_params(arch, source, tmp)
-    return worker.generate(cfg, params)
+    return worker.generate(cfg, params, None, *seq)
 
 
-@pytest.mark.parametrize("arch,source", worker.LM_MESH_CASES)
-def test_gloo_world_of_two_matches_the_mesh_free_port(runs, arch, source):
-    got, expect = runs["mesh"][arch], _mesh_free(arch, source, runs["tmp"])
+@pytest.mark.parametrize("case", worker.LM_MESH_CASES,
+                         ids=["-".join(map(str, c))
+                              for c in worker.LM_MESH_CASES])
+def test_gloo_world_of_two_matches_the_mesh_free_port(runs, case):
+    got = runs["mesh"][worker.lm_case_tag(case)]
+    expect = _mesh_free(*case[:2], runs["tmp"], *case[2:])
     for step, (a, b) in enumerate(zip(got["logits"], expect["logits"])):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=MESH_FREE,
                                    rtol=MESH_FREE, err_msg=f"step {step}")
@@ -81,7 +88,8 @@ def test_mixtral_over_the_mesh_matches_the_reference_mesh(runs):
         np.testing.assert_array_equal(ids.numpy(), ref[f"ids/{step}"])
 
 
-@pytest.mark.parametrize("arch", [a for a, _ in worker.LM_MESH_CASES])
+@pytest.mark.parametrize("arch", list(dict.fromkeys(
+    c[0] for c in worker.LM_MESH_CASES)))
 def test_world_of_one_is_the_mesh_free_port_bit_for_bit(arch):
     cfg = reduced(get_arch(arch))
     with launch_mesh.process_group("cpu"):

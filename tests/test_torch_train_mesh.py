@@ -7,11 +7,16 @@ Multi-rank cases run in a child process over a gloo world
 ``tmp_path``), the reference's mesh steps in a child with 8 host devices
 (``tests/jax_mesh_child.py``); both start from a module fixture, at once.
 
-* (2, 2) smollm-135m and (1, 4) mixtral (tensor-parallel experts) against
-  the port's mesh-free step, 2 steps: losses and grad norms within
-  rtol 1e-4, parameters within 1e-4 (PERF.md §2's training parity); the
-  same for (2, 2) smollm-135m with ``remat="full"`` and ``grad_accum=2``
-  and for (2, 2) zamba2-7b (its shared block gathered at each use).
+* (2, 2) smollm-135m and (1, 4) mixtral against the port's mesh-free
+  step, 2 steps: losses and grad norms within rtol 1e-4, parameters
+  within 1e-4 (PERF.md §2's training parity). The blocks run
+  tensor-parallel over ``model`` (attention on the rank's heads, the MLP
+  on its ``ff`` slice, the experts on theirs; mixtral's 2 kv heads over
+  4 read by a forced slice) with the residual stream the rank's rows of
+  the sequence. The same for (2, 2) smollm-135m with ``remat="full"``
+  and ``grad_accum=2``, with 3 heads and 1 kv head, and with a sequence
+  of 31, and for (2, 2) zamba2-7b (its shared block gathered at each
+  use, the Mamba body on the rank's SSD heads).
 * (2, 2) mixtral and (1, 2) qwen3-moe (expert-parallel) against the
   reference's jitted mesh step on the same JAX mesh, from its own
   parameters. With the batch split over ``data`` each data shard routes
@@ -91,7 +96,7 @@ def runs(tmp_path_factory):
 
 def _mesh_free(arch, source, tmp, overrides=None):
     cfg, params = worker.case_params(arch, source, tmp, overrides)
-    run = dict(worker.STEP_RUN)
+    run = worker.case_run(overrides)
     return worker.run_steps(cfg, params, None, run.pop("steps"), **run)
 
 
@@ -107,9 +112,14 @@ def test_mesh_step_variants_match_the_mesh_free_step(runs, arch, shape,
                                                      source, overrides):
     """smollm-135m microbatched under remat (each block gathered in its
     forward and again in its recompute, shard gradients accumulated over
-    two microbatches) and zamba2-7b (the shared block's leaves gathered
-    and reduce-scattered after each of its uses, the Mamba leaves over
-    ``model``), against the mesh-free step of the same config."""
+    two microbatches), zamba2-7b (the shared block's leaves gathered and
+    reduce-scattered after each of its uses, the Mamba body on its SSD
+    heads with the gated norm's sum over ``model``), smollm-135m with 3
+    heads and 1 kv head (the heads cut 2 and 1 from leaves stored whole
+    over ``model``, their gradients' all-reduce summing disjoint slices)
+    and with a sequence of 31 (the rows whole on both model ranks, the
+    partials all-reduced), against the mesh-free step of the same
+    config."""
     _assert_mesh_free_parity(runs, arch, shape, source, overrides)
 
 

@@ -46,11 +46,18 @@ MESH22_CASES = (("smollm_135m", (2, 2), "port"),
                 ("mixtral_8x7b", (1, 4), "ref"))
 EP12_CASES = (("qwen3_moe_235b_a22b", (1, 2), "ref"),)
 # run in the same world after MESH22_CASES: (arch, mesh shape, parameters,
-# config overrides on top of ``reduced()``): a microbatched step under
-# remat, and the hybrid's shared block (used once after each group)
+# config overrides on top of ``reduced()``, ``seq`` that of the batch): a
+# microbatched step under remat, the hybrid's shared block (used once
+# after each group), 3 heads over a model axis of 2 (a forced head slice
+# of a leaf stored whole over ``model``, the one kv head read by groups
+# of 2 and 1), and a sequence ``model`` does not divide (the residual
+# stream whole on every rank, the partials all-reduced)
 MESH22_VARIANTS = (("smollm_135m", (2, 2), "port",
                     {"remat": "full", "grad_accum": 2}),
-                   ("zamba2_7b", (2, 2), "port", {}))
+                   ("zamba2_7b", (2, 2), "port", {}),
+                   ("smollm_135m", (2, 2), "port",
+                    {"num_heads": 3, "num_kv_heads": 1}),
+                   ("smollm_135m", (2, 2), "port", {"seq": 31}))
 
 
 def case_tag(arch, shape, overrides=None) -> str:
@@ -74,9 +81,19 @@ def task_psum(rank, world, out: Path):
         torch.save({"f32": got, "bf16": bf}, out / "result.pt")
 
 
+def case_run(overrides=None) -> dict:
+    """``run_steps``'s keyword arguments of a case: ``STEP_RUN`` with the
+    case's ``seq``."""
+    run = dict(STEP_RUN)
+    run["seq"] = (overrides or {}).get("seq", run["seq"])
+    return run
+
+
 def case_params(arch, source, out: Path, overrides=None):
-    """(cfg, the port's model) of a case's parameters."""
-    cfg = dataclasses.replace(reduced(get_arch(arch)), **(overrides or {}))
+    """(cfg, the port's model) of a case's parameters (the config
+    overrides but ``seq``)."""
+    overrides = {k: v for k, v in (overrides or {}).items() if k != "seq"}
+    cfg = dataclasses.replace(reduced(get_arch(arch)), **overrides)
     if source == "port":
         return cfg, lm.init_params(torch.Generator().manual_seed(0), cfg)
     tree = {}
@@ -121,7 +138,7 @@ def run_cases(cases, world, out: Path, rank: int):
         cfg, params = case_params(arch, source, out, over)
         specs = sharding.param_specs(params, cfg, mesh)
         start = {k: p.detach().clone() for k, p in params.named_parameters()}
-        run = dict(STEP_RUN)
+        run = case_run(over)
         metrics, params, opt = run_steps(cfg, params, mesh, run.pop("steps"),
                                          **run)
         tag = case_tag(arch, shape, over)
@@ -167,24 +184,34 @@ def task_ep12(rank, world, out: Path):
         torch.save(result, out / "result.pt")
 
 
-# prefill + decode over a (1, WORLD) mesh (tests/test_torch_lm_mesh.py)
-LM_MESH_CASES = (("smollm_135m", "port"), ("mixtral_8x7b", "ref"))
+# prefill + decode over a (1, WORLD) mesh (tests/test_torch_lm_mesh.py):
+# (arch, parameters[, prompt length]); a prompt of 15 over a model axis
+# of 2 keeps the rows whole
+LM_MESH_CASES = (("smollm_135m", "port"), ("mixtral_8x7b", "ref"),
+                 ("mixtral_8x7b", "ref", 15))
 LM_PROMPT = dict(batch=2, seq=16, decode=4)
 COUNT_PSUM_NUMEL = 1000   # the analysed all-reduce's float32 elements
 
 
-def lm_prompt(cfg):
+def lm_case_tag(case) -> str:
+    """An ``LM_MESH_CASES`` entry's key in the results: arch[/seq=S]."""
+    return case[0] + "".join(f"/seq={s}" for s in case[2:])
+
+
+def lm_prompt(cfg, seq=None):
     """The cases' prompt: numpy-drawn token ids (B, S)."""
     return np.random.default_rng(5).integers(
-        0, cfg.vocab, (LM_PROMPT["batch"], LM_PROMPT["seq"])).astype(np.int32)
+        0, cfg.vocab, (LM_PROMPT["batch"], seq or LM_PROMPT["seq"])
+    ).astype(np.int32)
 
 
-def generate(cfg, params, mesh=None):
-    """Prefill of ``lm_prompt`` then ``LM_PROMPT["decode"]`` greedy decode
-    steps, over ``mesh`` (its parameters placed and gathered by their use
-    layout) or without one: every step's logits and ids."""
-    prompt = torch.from_numpy(lm_prompt(cfg))
-    b, s, n = LM_PROMPT["batch"], LM_PROMPT["seq"], LM_PROMPT["decode"]
+def generate(cfg, params, mesh=None, seq=None):
+    """Prefill of ``lm_prompt`` (``seq`` tokens, else ``LM_PROMPT``'s) then
+    ``LM_PROMPT["decode"]`` greedy decode steps, over ``mesh`` (its
+    parameters placed and gathered by their use layout) or without one:
+    every step's logits and ids."""
+    prompt = torch.from_numpy(lm_prompt(cfg, seq))
+    b, s, n = LM_PROMPT["batch"], prompt.shape[1], LM_PROMPT["decode"]
     ctx = contextlib.nullcontext()
     if mesh is not None:
         ctx = train_mod.gathered(params, train_mod.place_params(
@@ -207,9 +234,10 @@ def task_lm_mesh(rank, world, out: Path):
     mesh = sharding.bind(sharding.make_mesh(
         (1, world), ("data", "model"), devices=["cpu"] * world))
     result = {}
-    for arch, source in LM_MESH_CASES:
+    for arch, source, *seq in LM_MESH_CASES:
         cfg, params = case_params(arch, source, out)
-        result[arch] = generate(cfg, params, mesh)
+        result[lm_case_tag((arch, source, *seq))] = generate(
+            cfg, params, mesh, *seq)
     if rank == 0:
         torch.save(result, out / "result.pt")
 
