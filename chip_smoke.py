@@ -180,7 +180,26 @@ Phases, one JSON line each (after the card's name and power limit):
     version (``LM_TOL`` / ``SSD_TOL``); the launches of the 16 bodies
     (counts set to 0 just before, read just after); device times (CUDA
     events) of rank 0's body, all 16 and the whole layer's body;
-21. a ``kernels`` line with each kernel's launches on its main path (the
+21. ``sp_decode``: decode over a mesh in the reference's cache layout,
+    one card standing in for the ``TP_MODEL`` (16) ranks of ``model`` in
+    turn: one llama3-405b layer in bf16 at ``decode_32k``'s rank rows, 8
+    sequences over a 32768-slot cache of random K/V, 2048 slots a rank,
+    at positions 32767 and 20000 (where rank 9 sees part of its slice and
+    ranks 10-15 none), through the helpers the mesh's decode runs
+    (``layers.decode_attend``, ``rank_heads``, ``head_ranges``;
+    ``sharding.stitch_ranges``; ``ref.softmax_merge``). Each rank's
+    partial through ``flash_decode``'s partial mode held against
+    ``ref.decode_attention_partial_ref``; the 16 merged against
+    ``flash_decode`` and ``ref.decode_attention_ref`` on the whole cache,
+    the summed attention and MLP partials against the whole layer's,
+    each within bf16's ``LM_TOL`` of the reference's largest magnitude;
+    the layer's output against the mesh-free decode block. Each rank's
+    partial, the whole-cache kernel, the plain version and SDPA over the
+    rank's visible slice timed (cold L2, CUDA events; the partial's host
+    path as ``call_ms``), the bound from the bytes of the rank's visible
+    K/V, the partial mode's launches (counts set to 0 just before the
+    ranks' run, read just after: one a rank that sees a key);
+22. a ``kernels`` line with each kernel's launches on its main path (the
     fleet-scale speculative serve for ``route_score``, and its launches
     on the actor and mesh paths beside them, with the mesh blocks'
     cases; execute-serving for the others, and
@@ -190,8 +209,9 @@ Phases, one JSON line each (after the card's name and power limit):
     numbers at each full-width arch's bf16 case (``FULL_CASE``), the
     training cases' forward and backward times and each kernel's
     launches in one ``train_full`` step and one ``train_mesh`` step, and
-    those of the ``tp_bodies`` phase;
-22. the last line, ``{"ok": true, "device": {...}}``.
+    those of the ``tp_bodies`` and ``sp_decode`` phases (``flash_decode``
+    with its partial mode's rank 0 numbers and launches there);
+23. the last line, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32: TF32 is off for cuBLAS and
 cuDNN. Any failed check exits non-zero; without a card, or outside a
@@ -288,6 +308,11 @@ TP_TOKENS = (1, 4096)               # batch x sequence, gathered
 # the whole product's, and the SSD's decays carry dt's rounding)
 TP_TOL = {"attention": LM_TOL["bfloat16"], "mlp": LM_TOL["bfloat16"],
           "mamba": SSD_TOL["bfloat16"]}
+# sequence-parallel decode on one card: one layer of ``arch`` (config
+# overrides beside it) at decode_32k's rank rows, its cache cut over
+# TP_MODEL ranks; at 20000 rank 9 sees part of its slice, ranks 10-15 none
+SP_DECODE = dict(arch="llama3_405b", overrides={}, rows=8, slots=32768,
+                 positions=(32767, 20000))
 
 
 def emit(obj):
@@ -2805,20 +2830,232 @@ def phase_tp_bodies(torch, configs, ops, ref, layers, mamba2, transformer,
     return launches
 
 
+def phase_sp_decode(torch, F, configs, ops, ref, layers, transformer,
+                    sharding, counters, partial, dev="cuda"):
+    """``SP_DECODE`` on the card: one layer (drawn from seed 0, its norm
+    scales 1 + 0.5 N(0, 1)) decoding ``rows`` sequences over a cache of
+    ``slots`` random bf16 K/V, one card standing in for the ``TP_MODEL``
+    ranks of ``model`` in turn, through the helpers the mesh's decode
+    runs: each rank's q and K/V heads from its slices
+    (``layers.project_qkv``), put together by ``sharding.stitch_ranges``
+    over ``layers.head_ranges`` (``gather_ranges``'s pick without its
+    all-gather), each rank's ``layers.decode_attend`` on its piece (the
+    slot written by the rank that owns it, its partial through the
+    kernel's partial mode), the 16 merged by ``ref.merge_partials``
+    (``ref.softmax_merge``, ``sharding.softmax_combine``'s arithmetic
+    with the all-reduces as sums over a stack), ``wo`` on each rank's
+    ``layers.rank_heads``, the MLP on its ``ff`` slice. Held at each
+    position: each rank's partial against
+    ``ref.decode_attention_partial_ref`` (``m`` and ``l`` at atol = rtol
+    = bf16's ``LM_TOL``, ``acc / l`` within ``LM_TOL`` of its largest
+    magnitude); the merged attention against ``flash_decode`` and
+    ``ref.decode_attention_ref`` on the whole cache, the summed attention
+    partials and the summed MLP partials (float32) against the whole
+    layer's, each within ``LM_TOL`` of the reference's largest magnitude
+    (printed beside it: these values are ~1e-2, so an absolute ``LM_TOL``
+    would pass a dropped rank); the layer's output against the mesh-free
+    decode block at atol = rtol = ``LM_TOL``. Times (cold L2, CUDA events)
+    each rank's partial, the whole-cache kernel, the plain version and
+    SDPA over the rank's visible slice, and the partial's host path
+    (``call_ms``: calls back to back). Returns the launches of the ranks'
+    run (counts set to 0 just before the ranks' bodies, read just after)
+    and rank 0's numbers at the first position. On the CPU (``dev``) the
+    checks only."""
+    import types
+
+    on_card = dev == "cuda"
+    flush = (torch.empty(2**28, dtype=torch.float32, device=dev)  # 1 GiB
+             if on_card else None)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def cold_ms(fn, iters):
+        return time_cold_ms(torch, fn, iters, flush) if on_card else None
+
+    def calls_ms(fn, iters):
+        return call_ms(torch, fn, iters) if on_card else None
+
+    def close(a, b):
+        return bool(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol))
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def scaled(a, b):
+        """max |a - b| and its limit, ``tol`` times max |b|."""
+        return {"max_abs_err": err(a, b), "max_abs_ref": float(
+            b.float().abs().max()), "limit": tol * float(b.float().abs().max())}
+
+    t0 = time.perf_counter()
+    card = None
+    if on_card:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        card = smi.stdout.strip().splitlines()[0] if smi.stdout else None
+    cfg = configs.get_arch(SP_DECODE["arch"], num_layers=1,
+                           **SP_DECODE["overrides"])
+    dt = getattr(torch, cfg.compute_dtype)
+    tol = LM_TOL[cfg.compute_dtype]
+    m_ranks = TP_MODEL
+    gen = torch.Generator(device=dev).manual_seed(0)
+    block = transformer.DenseBlock(cfg, gen).to(dev)
+    block.requires_grad_(False)
+    for k, t in block.named_parameters():     # norm scales start at 1
+        if k.endswith("scale"):
+            t.copy_(1 + 0.5 * torch.randn(t.shape, generator=gen, device=dev))
+    b, slots = SP_DECODE["rows"], SP_DECODE["slots"]
+    kv, hd, h = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    base = {n: torch.randn((b, slots, kv, hd), generator=gen, device=dev
+                           ).to(dt) for n in ("k", "v")}
+    x = torch.randn((b, 1, cfg.d_model), generator=gen, device=dev).to(dt)
+    attn = [tp_slices(types, sharding, block.attn, "attn", cfg, r)
+            for r in range(m_ranks)]
+    mlp = [tp_slices(types, sharding, block.mlp, "mlp", cfg, r)
+           for r in range(m_ranks)]
+    shards = [types.SimpleNamespace(index=r, size=m_ranks)
+              for r in range(m_ranks)]
+    q_ranges, kv_ranges = layers.head_ranges(cfg, m_ranks)
+    launches = dict.fromkeys(list(counters) + ["flash_decode_partial"], 0)
+    summary = None
+    for pos in SP_DECODE["positions"]:
+        positions = torch.full((1,), pos, dtype=torch.long, device=dev)
+        whole = {n: t.clone() for n, t in base.items()}
+        y_whole = transformer.dense_block_apply(block, x, positions, cfg,
+                                                cache=whole, pos=pos)[0]
+        normed = layers.rmsnorm_apply(block.ln1, x, cfg)
+        attn_whole = layers.attention_apply(block.attn, normed, positions,
+                                            cfg, cache=whole, pos=pos)[0]
+        del whole
+        mesh_cache = {n: t.clone() for n, t in base.items()}
+        sync()
+        zero_counts(counters)
+        partial.launches = 0
+        qkv = [layers.project_qkv(p, normed, positions, cfg) for p in attn]
+        q = sharding.stitch_ranges([t[0] for t in qkv], 2, q_ranges, h)
+        k_new, v_new = (sharding.stitch_ranges([t[i] for t in qkv], 2,
+                                               kv_ranges, kv) for i in (1, 2))
+        parts, reads = [], []
+        for sh in shards:
+            offset, n = sharding.seq_piece(slots, sh)
+            piece = {nm: t.narrow(1, offset, n) for nm, t in mesh_cache.items()}
+            parts.append(layers.decode_attend(piece, q, k_new, v_new, pos,
+                                              cfg, sh, slots))
+            reads.append((piece["k"], piece["v"], offset, n))
+        out = ref.merge_partials(parts, q.dtype)
+        attn_parts = [torch.einsum("bshk,hkd->bsd", layers.rank_heads(
+            out, cfg, sh), p.wo.to(dt)) for sh, p in zip(shards, attn)]
+        x1 = x + sum(a.float() for a in attn_parts).to(dt)
+        normed2 = layers.rmsnorm_apply(block.ln2, x1, cfg)
+        mlp_parts = [layers.mlp_apply(p, normed2, cfg) for p in mlp]
+        y = x1 + sum(a.float() for a in mlp_parts).to(dt)
+        sync()
+        got_launches = {**read_counts(counters),
+                        "flash_decode_partial": partial.launches}
+        for k, n in got_launches.items():
+            launches[k] += n
+        ranks = []
+        for r, ((ck, cv, offset, n), got) in enumerate(zip(reads, parts)):
+            lo, hi = ref.decode_key_range(n, pos, 0, offset)
+            expect = ref.decode_attention_partial_ref(q, ck, cv, pos,
+                                                      key_offset=offset)
+            acc = scaled(*(t[2] / t[1].clamp_min(1e-30)
+                           for t in (got, expect)))
+            perr = max(err(got[0], expect[0]), err(got[1], expect[1]),
+                       acc["max_abs_err"])
+            check(close(got[0], expect[0]) and close(got[1], expect[1])
+                  and acc["max_abs_err"] <= acc["limit"],
+                  f"sp_decode pos {pos} rank {r}: the partial kernel off its "
+                  f"plain version by {perr} (acc / l: {acc})")
+            seen = hi - lo
+            bound = bound_of(nbytes_of(q) + 2 * b * seen * kv * hd
+                             * ck.element_size() + b * h * (hd + 2) * 4,
+                             4 * b * h * seen * hd, MATMUL_OPS["bfloat16"])
+            ks, vs = ck[:, lo:hi].transpose(1, 2), cv[:, lo:hi].transpose(1, 2)
+
+            def kernel_fn():
+                return ops.decode_attention_partial(q, ck, cv, pos,
+                                                    key_offset=offset)
+
+            ranks.append({
+                "rank": r, "offset": offset, "slots": n, "keys_seen": seen,
+                "launched": hi > lo, "max_abs_err": perr,
+                "acc_over_l_max_abs": acc["max_abs_ref"],
+                "ms": cold_ms(kernel_fn, 20), "call_ms": calls_ms(kernel_fn, 20),
+                "plain_ms": cold_ms(lambda: ref.decode_attention_partial_ref(
+                    q, ck, cv, pos, key_offset=offset), 3) if r == 0 else None,
+                "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), ks, vs, enable_gqa=True), 20)
+                if seen else None,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "kv_bytes": 2 * b * n * kv * hd * ck.element_size()})
+        kw, vw = mesh_cache["k"], mesh_cache["v"]
+        mlp_whole = layers.mlp_apply(block.mlp, normed2, cfg)
+        checks = {
+            "vs_flash_decode": scaled(out, ops.decode_attention(
+                q, kw, vw, pos)),
+            "vs_plain": scaled(out, ref.decode_attention_ref(q, kw, vw, pos)),
+            "attention_vs_whole": scaled(
+                sum(a.float() for a in attn_parts), attn_whole),
+            "mlp_vs_whole": scaled(sum(a.float() for a in mlp_parts),
+                                   mlp_whole)}
+        layer_err = err(y, y_whole)
+        check(all(c["max_abs_err"] <= c["limit"] for c in checks.values())
+              and close(y, y_whole) and bool(torch.isfinite(y).all()),
+              f"sp_decode pos {pos}: the ranks off the whole layer {checks}, "
+              f"the layer by {layer_err}")
+        live = sum(1 for rk in ranks if rk["launched"])
+        check(not on_card or got_launches["flash_decode_partial"] == live,
+              f"sp_decode pos {pos}: {got_launches} for {live} ranks with "
+              "keys")
+        line = {"phase": "sp_decode", "arch": SP_DECODE["arch"], "card": card,
+                "model": m_ranks, "rows": b, "slots": slots, "pos": pos,
+                "dtype": cfg.compute_dtype, "tolerance": tol, **checks,
+                "layer_vs_whole": layer_err, "launches": got_launches,
+                "ranks": ranks,
+                "whole_cache_ms": cold_ms(lambda: ops.decode_attention(
+                    q, kw, vw, pos), 20),
+                "whole_cache_call_ms": calls_ms(lambda: ops.decode_attention(
+                    q, kw, vw, pos), 20),
+                "ranks_in_turn_call_ms": calls_ms(lambda: [
+                    ops.decode_attention_partial(q, ck, cv, pos, key_offset=o)
+                    for ck, cv, o, _ in reads], 5)}
+        emit(line)
+        if summary is None:
+            summary = {"case": f"sp-rank0-pos{pos}", "shape": [
+                [b, 1, h, hd], list(reads[0][0].shape)], **{
+                    k: ranks[0][k] for k in ("ms", "call_ms", "plain_ms",
+                                             "library_ms", "bound_ms",
+                                             "bound_by", "max_abs_err")},
+                "whole_cache_ms": line["whole_cache_ms"]}
+        del mesh_cache, reads, parts, kw, vw
+    del base, block, flush
+    if on_card:
+        torch.cuda.empty_cache()
+    emit({"phase": "sp_decode", "case": "timing", "card": card,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches, summary
+
+
 def kernel_entry(name, source, replaces, launches, results, full_launches,
-                 grads, train_launches, mesh_launches, tp_launches):
+                 grads, train_launches, mesh_launches, tp_launches,
+                 sp_launches, sp_rank0):
     """The ``kernels`` line's entry: execute-serving's case for the times,
     the largest float32 and bf16 errors over all cases, the full-width bf16
     cases ``FULL_CASE[name]`` beside it, the launches of each full-width
     arch's run, the training cases (forward kernel and backward a call),
     the launches of one ``train_full`` step of each arch and of one mesh
-    step (``train_mesh``)."""
+    step (``train_mesh``), of ``tp_bodies`` and of ``sp_decode``; for
+    ``flash_decode`` its partial mode's rank 0 numbers in ``sp_decode``
+    and its launches there."""
     mine = {k: r for k, r in results.items() if k[0] == name}
     main = next(r for (n, c, d), r in mine.items() if c == "serve")
     keys = ("case", "dtype", "shape", "ms", "call_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "splits")
     full = [mine[(name, case, "bfloat16")] for case in FULL_CASE[name]]
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for (n, c, d), r in mine.items()
@@ -2840,7 +3077,13 @@ def kernel_entry(name, source, replaces, launches, results, full_launches,
         "launches_train_mesh": {arch: n[name]
                                 for arch, n in mesh_launches.items()},
         "launches_tp_bodies": tp_launches[name],
+        "launches_sp_decode": sp_launches[name],
     }
+    if name == "flash_decode":      # the partial mode, in sp_decode
+        entry["partial_mode"] = {
+            **sp_rank0, "launches_sp_decode": sp_launches[
+                "flash_decode_partial"]}
+    return entry
 
 
 # --------------------------------------------------------------------------
@@ -2925,6 +3168,10 @@ def main():
     t_tp = time.perf_counter()
     tp_launches = phase_tp_bodies(torch, configs, ops, ref, layers, mamba2,
                                   transformer, sharding, counters)
+    t_sp = time.perf_counter()
+    sp_launches, sp_rank0 = phase_sp_decode(
+        torch, F, configs, ops, ref, layers, transformer, sharding, counters,
+        flash_decode.flash_decode_partial)
     t_end = time.perf_counter()
     emit({"phase": "timing", "total_s": t_end - t_start,
           "lm_phases_s": t_actor - t_lm, "actor_phases_s": t_train - t_actor,
@@ -2932,7 +3179,7 @@ def main():
           "train_phases_s": t_train_mesh - t_train,
           "train_mesh_phase_s": t_analysis - t_train_mesh,
           "analysis_phase_s": t_tp - t_analysis,
-          "tp_bodies_phase_s": t_end - t_tp})
+          "tp_bodies_phase_s": t_sp - t_tp, "sp_decode_phase_s": t_end - t_sp})
     main = scores[("main-path-base", "float32")]
     floor = scores[("launch-floor", "float32")]
     err = max([r["max_abs_err"] for (case, dt), r in scores.items()
@@ -2968,7 +3215,8 @@ def main():
     }] + [
         kernel_entry(name, f"{csrc}/{src}.cu", f"{pallas}/{src}.py:{line}",
                      exec_launches[name], lm_results, full_launches, grads,
-                     train_launches, mesh_train_launches, tp_launches)
+                     train_launches, mesh_train_launches, tp_launches,
+                     sp_launches, sp_rank0)
         for name, src, line in (("rmsnorm", "rmsnorm", 34),
                                 ("flash_attention", "flash_attention", 98),
                                 ("flash_decode", "flash_decode", 83),

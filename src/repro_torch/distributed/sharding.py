@@ -32,7 +32,12 @@ does not divide falls back to replication where the reference checks
 
 Activations are not DTensors here: each rank runs its forward on plain
 local tensors, and the layout the reference's ``constrain`` hints pin
-is made by hand. ``constrain_spec`` keeps their resolution rule (the
+is made by hand. The decode cache over ``model`` is this rank's pieces as
+``cache_specs`` lays them out (the K/V sequence in ``torch.chunk`` pieces,
+Mamba's ``conv_x`` channels, the SSD state by heads where they divide),
+handed between the serving calls as ``DTensor``s over the ``model`` axis
+(``cache_dtensors``; the batch rows are the rank's, as the tokens are);
+decode attention is sequence-parallel over it (``softmax_combine``). ``constrain_spec`` keeps their resolution rule (the
 ``"batch"`` expansion, the ``"!"`` force, the divisibility fallback);
 the step places its batch rows with it. Over ``model`` (``ModelShard``)
 the residual stream is this rank's rows of the sequence where the
@@ -51,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ref
 
 
 class Mesh(NamedTuple):
@@ -212,13 +218,15 @@ def _gather_padded(x, group, size: int, width: int):
     return out
 
 
-def all_gather(x, ax: Axis):
+def all_gather(x, ax: Axis, contiguous: bool = True):
     """The whole of ``ax.dim`` from each rank's ``torch.chunk`` piece:
     each piece padded to the chunk size, one all-gather, the padding cut
-    off."""
+    off. With ``contiguous`` false, a view of the gathered buffer where
+    ``ax.dim`` is not the leading dim (no second copy of the whole)."""
     c = -(-ax.length // ax.size)
     out = _gather_padded(x.movedim(ax.dim, 0), ax.group, ax.size, c)
-    return out[:ax.length].movedim(0, ax.dim).contiguous()
+    out = out[:ax.length].movedim(0, ax.dim)
+    return out.contiguous() if contiguous else out
 
 
 def reduce_scatter(g, ax: Axis):
@@ -334,11 +342,26 @@ def gather_ranges(x, tp, dim: int, ranges, length: int):
     all-gather of the pieces padded to the widest. Collective."""
     width = max(hi - lo for lo, hi in ranges)
     out = _gather_padded(x.movedim(dim, 0), tp.axis.group, tp.size, width)
+    return _pick_ranges(out, dim, ranges, length, width)
+
+
+def stitch_ranges(pieces, dim: int, ranges, length: int):
+    """``gather_ranges`` where one process holds every rank's piece (a
+    list in rank order): the same padding and pick, no collective."""
+    width = max(hi - lo for lo, hi in ranges)
+    out = torch.cat([_padded(x.movedim(dim, 0), width) for x in pieces])
+    return _pick_ranges(out, dim, ranges, length, width)
+
+
+def _pick_ranges(out, dim: int, ranges, length: int, width: int):
+    """The whole of ``dim`` from the ranks' pieces padded to ``width`` and
+    concatenated on dim 0 in rank order: each position from the first
+    rank whose range holds it."""
     src = {}
     for r, (lo, hi) in enumerate(ranges):
         for j in range(lo, hi):
             src.setdefault(j, r * width + j - lo)
-    idx = torch.tensor([src[j] for j in range(length)], device=x.device)
+    idx = torch.tensor([src[j] for j in range(length)], device=out.device)
     return out.index_select(0, idx).movedim(0, dim).contiguous()
 
 
@@ -399,6 +422,200 @@ def tp_slice(name: str, cfg: ArchConfig, index: int, size: int):
         if what == "inner":
             lo, hi = lo * cfg.ssm_head_dim, hi * cfg.ssm_head_dim
     return dim, lo, hi
+
+
+# ------------------------------------------------------ the decode layout
+def seq_piece(length: int, tp) -> tuple:
+    """``(offset, n)``: the global slot of this rank's first K/V slot and
+    how many it holds, its ``torch.chunk`` piece of a ``length``-slot
+    cache over ``model`` (``n`` 0 past the last piece); ``(0, length)``
+    where ``tp`` is None."""
+    if tp is None:
+        return 0, length
+    lo, hi = heads_of(length, tp.index, tp.size)
+    return lo, hi - lo
+
+
+def slot_owner(slot: int, length: int, size: int) -> int:
+    """The ``model`` rank whose ``torch.chunk`` piece of a ``length``-slot
+    cache holds ``slot`` (a ring cache's slot is ``pos % length``)."""
+    return slot // -(-length // size)
+
+
+def softmax_combine(m, l, acc, dtype, tp):
+    """Decode attention over a cache whose sequence is cut over ``model``,
+    from this rank's float32 partial (``ops.decode_attention_partial``):
+    ``ref.softmax_merge`` with the ranks reduced by a MAX all-reduce of
+    ``m`` and one all-reduce of ``l w`` and ``acc w`` packed together.
+    Every rank calls it, with a key or without. No autograd (decode)."""
+    group = tp.axis.group
+
+    def reduce_max(t):
+        t = t.clone()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return t
+
+    def reduce_sum(a, b):
+        packed = torch.cat([a.flatten(), b.flatten()])
+        dist.all_reduce(packed, group=group)
+        x, y = packed.split([a.numel(), b.numel()])
+        return x.view(a.shape), y.view(b.shape)
+
+    return ref.softmax_merge(m, l, acc, dtype, reduce_max, reduce_sum)
+
+
+def _mamba_ranges(cfg: ArchConfig, tp):
+    """Per rank, the SSD heads its body takes, the ``d_inner`` channels of
+    those heads and the channels of its stored ``conv_x`` piece."""
+    p = cfg.ssm_head_dim
+    heads = [heads_of(cfg.ssm_heads, r, tp.size) for r in range(tp.size)]
+    body = [(lo * p, hi * p) for lo, hi in heads]
+    stored = [heads_of(cfg.d_inner, r, tp.size) for r in range(tp.size)]
+    return heads, body, stored
+
+
+def mamba_cache_to_body(cache, cfg: ArchConfig, tp) -> dict:
+    """A Mamba layer's decode cache, this rank's stored pieces (``conv_x``
+    its ``torch.chunk`` of the channels, ``ssd`` its heads where
+    ``ssm_heads`` divides ``model``, else whole; ``conv_b``/``conv_c``
+    whole), as its tensor-parallel body takes them: its heads and their
+    channels. Where the heads divide the pieces are the body's; else
+    ``ssd`` is cut and ``conv_x`` gathered whole and cut (one all-gather).
+    Collective where it gathers."""
+    heads, body, stored = _mamba_ranges(cfg, tp)
+    out = dict(cache)
+    if _model_dims(cache, cfg, tp)["ssd"] is None:      # stored whole
+        h0, h1 = heads[tp.index]
+        out["ssd"] = cache["ssd"][:, h0:h1]
+    if body != stored:
+        c0, c1 = body[tp.index]
+        whole = all_gather(cache["conv_x"], Axis(tp.axis.group, tp.size,
+                                                 tp.index, 2, cfg.d_inner))
+        out["conv_x"] = whole[..., c0:c1]
+    return out
+
+
+def mamba_cache_from_body(new, cfg: ArchConfig, tp) -> dict:
+    """The inverse of ``mamba_cache_to_body``: the body's new state (its
+    heads and channels) as the stored pieces; where the heads do not
+    divide ``model``, ``ssd`` gathered whole and ``conv_x`` gathered and
+    cut to this rank's chunk (one ``gather_ranges`` each). Collective
+    where it gathers."""
+    heads, body, stored = _mamba_ranges(cfg, tp)
+    out = dict(new)
+    if _model_dims(new, cfg, tp)["ssd"] is None:
+        out["ssd"] = gather_ranges(new["ssd"], tp, 1, heads, cfg.ssm_heads)
+    if body != stored:
+        c0, c1 = stored[tp.index]
+        out["conv_x"] = gather_ranges(new["conv_x"], tp, 2, body,
+                                      cfg.d_inner)[..., c0:c1].contiguous()
+    return out
+
+
+def _model_dims(cache, cfg: ArchConfig, tp) -> dict:
+    """The tree of ``cache`` (a decode cache's tree; its leaves' shapes
+    are not read) with, for each leaf, the dim that ``cache_specs`` puts
+    on ``model``, counted from the end (so it holds for one layer's leaf
+    as for the stacked one), or None for a leaf kept whole."""
+    def dim(spec):
+        hit = [i for i, a in enumerate(spec) if a == "model"
+               or isinstance(a, tuple) and "model" in a]
+        return hit[0] - len(spec) if hit else None
+
+    def walk(specs):
+        return {k: walk(v) if isinstance(v, dict) else dim(v)
+                for k, v in specs.items()}
+
+    return walk(cache_specs(cache, cfg, tp.mesh, 1))  # batch entry unread
+
+
+def cut_cache(whole, cfg: ArchConfig, tp) -> dict:
+    """This rank's pieces (views) of a whole decode cache ``whole`` (a
+    tree as ``lm.init_cache`` makes it): each leaf cut to its
+    ``torch.chunk`` piece of the dim that ``cache_specs`` puts on
+    ``model``, the rest whole."""
+    dims = _model_dims(whole, cfg, tp)
+
+    def walk(tree, dims):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, dims[k])
+            elif dims[k] is None:
+                out[k] = v
+            else:
+                lo, hi = heads_of(v.shape[dims[k]], tp.index, tp.size)
+                out[k] = v.narrow(dims[k], lo, hi - lo)
+        return out
+
+    return walk(whole, dims)
+
+
+def cache_dtensors(pieces, whole, cfg: ArchConfig, tp):
+    """A decode cache of this rank's pieces (as ``cut_cache`` cuts
+    ``whole``, whose leaves give the whole shapes: meta tensors will do;
+    ``pieces`` may hold fewer leaves) as ``DTensor``s over the ``model``
+    axis of ``tp.mesh``: ``Shard`` on the dim ``cache_specs`` puts on
+    ``model``, the rest ``Replicate``. The batch is the rank's rows. No
+    communication."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    sub = tp.mesh.groups["model"]
+    dims = _model_dims(whole, cfg, tp)
+
+    def wrap(t, w, d):
+        shape = list(t.shape)
+        if d is not None:
+            shape[d] = w.shape[d]
+        stride = [1] * len(shape)       # the whole's, contiguous
+        for i in range(len(shape) - 2, -1, -1):
+            stride[i] = stride[i + 1] * shape[i + 1]
+        return DTensor.from_local(t, sub, [Replicate() if d is None
+                                           else Shard(t.dim() + d)],
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=tuple(stride))
+
+    def walk(tree, whole, dims):
+        return {k: walk(v, whole[k], dims[k]) if isinstance(v, dict)
+                else wrap(v, whole[k], dims[k]) for k, v in tree.items()}
+
+    return walk(pieces, whole, dims)
+
+
+def cache_pieces(cache):
+    """``(pieces, kv_len)``: the local tensors of a ``cache_dtensors``
+    tree (sharing their storage) and its K/V leaves' slots in all (None
+    without a K/V leaf)."""
+    kv_len = None
+
+    def walk(tree):
+        nonlocal kv_len
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+                continue
+            if k == "k":
+                kv_len = v.shape[-3]
+            out[k] = v.to_local()
+        return out
+
+    from torch.distributed.tensor import DTensor
+
+    if not all(isinstance(v, DTensor) for v in _tree_leaves(cache)):
+        raise TypeError("a decode cache over a model axis above 1 is in the "
+                        "decode layout: DTensors over model "
+                        "(lm.prefill(mesh=), lm.init_cache(mesh=))")
+    with torch.no_grad():
+        return walk(cache), kv_len
+
+
+def _tree_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tree_leaves(v)
+        else:
+            yield v
 
 
 # ------------------------------------------------------------------ specs

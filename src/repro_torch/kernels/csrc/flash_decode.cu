@@ -45,6 +45,15 @@
 // A warp or split whose keys are all masked (a window that starts inside
 // its tile, pos 0) carries m = -1e30, l = 0 and gets weight 0 in the merge:
 // masked probabilities are exactly 0.
+//
+// Partial mode (sequence-parallel decode over a mesh, where each rank holds a
+// contiguous piece of the cache): the same passes, but the merged float32
+// (m, l, acc) of every (batch, head) is the output, without the division,
+// for a log-sum-exp combine across ranks
+// (ref.py::decode_attention_partial_ref). With one split pass 1 writes it
+// directly; otherwise pass 2 merges the splits into it. The wrapper turns
+// the rank's global key range into local slots and does not launch when
+// the rank sees no key.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -524,16 +533,20 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     part_l, part_acc);
 }
 
-// Pass 2: one block of D threads per (q head, batch) merges the splits.
+// Pass 2: one block of D threads per (q head, batch) merges the splits into
+// out, or in partial mode into the merged (m, l, acc) at `pout`.
 template <typename T, int D>
 __global__ void __launch_bounds__(D)
 flash_decode_combine_kernel(const float* __restrict__ part_m,
                             const float* __restrict__ part_l,
                             const float* __restrict__ part_acc,
-                            T* __restrict__ out, int h, int splits,
+                            T* __restrict__ out, float* __restrict__ pout_m,
+                            float* __restrict__ pout_l,
+                            float* __restrict__ pout_acc, int h, int splits,
                             Strides os_) {
   const int hq = blockIdx.x, b = blockIdx.y, c = threadIdx.x;
-  const long long base = ((long long)b * h + hq) * splits;
+  const long long bh = (long long)b * h + hq;
+  const long long base = bh * splits;
   float mx = kNegInf;
   for (int i = 0; i < splits; ++i) mx = fmaxf(mx, part_m[base + i]);
   float lt = 0.f, at = 0.f;
@@ -542,12 +555,17 @@ flash_decode_combine_kernel(const float* __restrict__ part_m,
     lt += wt * part_l[base + i];
     at += wt * part_acc[(base + i) * D + c];
   }
-  put(out + b * os_.b + hq * os_.h + c, at / fmaxf(lt, 1e-30f));
+  if (pout_m == nullptr) {
+    put(out + b * os_.b + hq * os_.h + c, at / fmaxf(lt, 1e-30f));
+  } else {
+    pout_acc[bh * D + c] = at;
+    if (c == 0) { pout_m[bh] = mx; pout_l[bh] = lt; }
+  }
 }
 
 template <typename T, int D, typename Kernel>
 int launch_split(Kernel kern, const void* q, const void* k, const void* v,
-                 void* out, float* part, int b, int kv, int rep,
+                 void* out, float* part, float* pout, int b, int kv, int rep,
                  const long long* st, int k_first, int k_end, int chunk,
                  int splits, int win_lo, float scale, cudaStream_t stream) {
   using L = Smem<T, D>;
@@ -557,32 +575,35 @@ int launch_split(Kernel kern, const void* q, const void* k, const void* v,
   const int h = kv * rep;
   const Strides qs_{st[0], st[1], st[2]}, ks_{st[3], st[4], st[5]},
       vs_{st[6], st[7], st[8]}, os_{st[9], st[10], st[11]};
-  float* pm = nullptr;
-  float* pl = nullptr;
-  float* pa = nullptr;
-  if (splits > 1) {  // part holds m, l (B*H*splits each), then acc (*D)
-    const long long n = (long long)b * h * splits;
-    pm = part;
-    pl = part + n;
-    pa = part + 2 * n;
-  }
+  // a (m, l, acc) buffer holds m, l (B*H*n each), then acc (*D): the
+  // splits' workspace (n = splits) and partial mode's output (n = 1)
+  auto cut = [&](float* buf, long long n, float*& m, float*& l, float*& a) {
+    m = buf;
+    l = buf + n;
+    a = buf + 2 * n;
+  };
+  float *pm = nullptr, *pl = nullptr, *pa = nullptr;
+  float *om = nullptr, *ol = nullptr, *oa = nullptr;
+  if (splits > 1) cut(part, (long long)b * h * splits, pm, pl, pa);
+  if (pout != nullptr) cut(pout, (long long)b * h, om, ol, oa);
+  if (splits == 1) { pm = om; pl = ol; pa = oa; }  // pass 1 writes the output
   kern<<<dim3(splits, kv, b), kWarps * 32, L::kBytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, pm, pl, pa, rep, h,
       qs_, ks_, vs_, os_, k_first, k_end, chunk, win_lo, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   flash_decode_combine_kernel<T, D><<<dim3(h, b), D, 0, stream>>>(
-      pm, pl, pa, (T*)out, h, splits, os_);
+      pm, pl, pa, (T*)out, om, ol, oa, h, splits, os_);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch(int rep, const void* q, const void* k, const void* v, void* out,
-           float* part, int b, int kv, const long long* st, int k_first,
-           int k_end, int chunk, int splits, int win_lo, float scale,
-           cudaStream_t stream) {
-#define FD_ARGS q, k, v, out, part, b, kv, rep, st, k_first, k_end, chunk, \
-    splits, win_lo, scale, stream
+           float* part, float* pout, int b, int kv, const long long* st,
+           int k_first, int k_end, int chunk, int splits, int win_lo,
+           float scale, cudaStream_t stream) {
+#define FD_ARGS q, k, v, out, part, pout, b, kv, rep, st, k_first, k_end, \
+    chunk, splits, win_lo, scale, stream
   if (rep < 1 || rep > kMaxRep) return -1;
   if constexpr (sizeof(T) == 2) {
     return launch_split<T, D>(flash_decode_mma_kernel<D>, FD_ARGS);
@@ -605,22 +626,25 @@ int launch(int rep, const void* q, const void* k, const void* v, void* out,
 // that order. The plan (flash_decode.py::plan_splits): keys [k_first, k_end)
 // in `splits` pieces of `chunk` keys (a multiple of 64; the last may be
 // short); keys below `win_lo` are masked. With splits > 1, `part` is a
-// float32 workspace of B * H * splits * (D + 2) values. Returns a
-// cudaError_t code (0 on success), -1 for arguments the kernel does not
-// take. Launches on the current device, on `stream`: one kernel for one
-// split, two otherwise.
+// float32 workspace of B * H * splits * (D + 2) values. Partial mode: a
+// non-null `partial` is a float32 output of B * H * (D + 2) values, m and l
+// (B * H each, batch-major) then acc (B * H * D), and `out` is not written
+// (its strides are not read); an empty key range is refused. Returns a cudaError_t code (0 on success), -1
+// for arguments the kernel does not take. Launches on the current device,
+// on `stream`: one kernel for one split, two otherwise.
 extern "C" int flash_decode_launch(
     int dtype, const void* q, const void* k, const void* v, void* out,
-    float* part, int b, int h, int kv, int d, const long long* strides,
-    int k_first, int k_end, int chunk, int splits, int win_lo, float scale,
-    void* stream) {
+    float* part, float* partial, int b, int h, int kv, int d,
+    const long long* strides, int k_first, int k_end, int chunk, int splits,
+    int win_lo, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (kv < 1 || h % kv || splits < 1 || chunk < 1 || chunk % kTile ||
-      (splits > 1 && part == nullptr))
+      (splits > 1 && part == nullptr) ||
+      (partial != nullptr && k_end <= k_first))
     return -1;
   const int rep = h / kv;
-#define FD_ARGS rep, q, k, v, out, part, b, kv, strides, k_first, k_end, \
-    chunk, splits, win_lo, scale, s
+#define FD_ARGS rep, q, k, v, out, part, partial, b, kv, strides, k_first, \
+    k_end, chunk, splits, win_lo, scale, s
   if (dtype == 0 && d == 64) return launch<float, 64>(FD_ARGS);
   if (dtype == 0 && d == 112) return launch<float, 112>(FD_ARGS);
   if (dtype == 0 && d == 128) return launch<float, 128>(FD_ARGS);

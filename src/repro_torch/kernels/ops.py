@@ -110,6 +110,22 @@ def decode_attention(q, k, v, pos: int, *, window=0):
 
 
 @_observed
+def decode_attention_partial(q, k, v, pos: int, *, key_offset=0, window=0):
+    """Decode attention's float32 ``(m, l, acc)`` over a piece of the cache
+    whose slot 0 is key ``key_offset`` (``csrc/flash_decode.cu``'s partial
+    mode), for a softmax combined across the ranks that hold the pieces
+    (``sharding.softmax_combine``)."""
+    if _on("decode_attention_partial", q.device):
+        from repro_torch.kernels import flash_decode as _k
+
+        return _k.flash_decode_partial(q, k, v, pos, key_offset=key_offset,
+                                       window=window)
+    return ref.decode_attention_partial_ref(q, k, v, pos,
+                                            key_offset=key_offset,
+                                            window=window)
+
+
+@_observed
 def ssd(x, dt, a_log, b, c, d_skip, *, chunk: int = 256):
     """Mamba2 SSD scan at prefill (``csrc/ssd_scan.cu``); ``chunk`` is the
     plain version's block length (also the backward's) and does not

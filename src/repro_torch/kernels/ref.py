@@ -188,11 +188,14 @@ def decode_attention_ref(q, k, v, pos: int, *, window=0):
 DECODE_TILE = 64  # keys per tile of the decode kernel: a split is whole tiles
 
 
-def decode_key_range(s: int, pos: int, window: int = 0):
-    """[k_begin, k_end): the keys a decode query at ``pos`` sees in an
-    ``s``-slot cache (``j <= pos`` and, with a window, ``j > pos - window``)."""
-    k_begin = max(0, pos - window + 1) if window > 0 else 0
-    return k_begin, min(s, pos + 1)
+def decode_key_range(s: int, pos: int, window: int = 0, key_offset: int = 0):
+    """[k_begin, k_end): the slots a decode query at ``pos`` sees in an
+    ``s``-slot cache (``j <= pos`` and, with a window, ``j > pos - window``),
+    or in a piece of ``s`` slots of one whose slot 0 is key ``key_offset``
+    (local slots; ``k_begin == k_end`` where the piece sees no key)."""
+    lo = max(0, pos - window + 1 - key_offset) if window > 0 else 0
+    lo = min(lo, s)
+    return lo, max(lo, min(s, pos + 1 - key_offset))
 
 
 def split_keys(k_begin: int, k_end: int, splits: int, tile: int = DECODE_TILE):
@@ -240,6 +243,58 @@ def decode_attention_split_ref(q, k, v, pos: int, splits: int, *, window=0):
     acc = sum(wi * pa for wi, (_, _, pa) in zip(w, parts))
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention_partial_ref(q, k, v, pos: int, *, key_offset=0,
+                                 window=0):
+    """The decode kernel's partial mode in plain tensor code: the float32
+    ``(m, l, acc)`` of one query per sequence over a piece of the cache,
+    k, v: (B, S, KV, D) holding keys ``key_offset .. key_offset + S - 1``,
+    masked on the global index (``j <= pos`` and inside ``window``). ``m``
+    (B, 1, H, 1) is the largest visible score (``NEG_INF`` where the piece
+    sees none), ``l`` (B, 1, H, 1) the sum of ``exp(score - m)`` and
+    ``acc`` (B, 1, H, D) those probabilities, rounded to the cache's type
+    as in ``decode_attention_ref``, times V; 0 where nothing is visible.
+    ``merge_partials`` of the pieces of a cache is ``decode_attention_ref``
+    over it."""
+    b, _, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    qg = q[:, 0].reshape(b, kv, h // kv, d).float()
+    lo, hi = decode_key_range(s, pos, window, key_offset)
+    kj = torch.arange(s, device=q.device)
+    vis = (kj >= lo) & (kj < hi)
+    scores = torch.einsum("bgrd,bkgd->bgrk", qg, k.float()) * (1.0 / math.sqrt(d))
+    scores = torch.where(vis, scores, NEG_INF)
+    m = (scores.amax(dim=-1, keepdim=True) if s else
+         torch.full((b, kv, h // kv, 1), NEG_INF, device=q.device))
+    p = torch.where(vis, torch.exp(scores - m), 0.0)
+    acc = torch.einsum("bgrk,bkgd->bgrd", p.to(v.dtype).float(), v.float())
+    return (m.reshape(b, 1, h, 1), p.sum(dim=-1).reshape(b, 1, h, 1),
+            acc.reshape(b, 1, h, d))
+
+
+def softmax_merge(m, l, acc, dtype, reduce_max, reduce_sum):
+    """Decode attention from float32 partials over pieces of a cache
+    (``decode_attention_partial_ref``: ``m`` the largest visible score,
+    ``l`` the sum of ``exp(score - m)``, ``acc`` those weights times V),
+    the pieces reduced by the callers' reductions: ``m* = reduce_max(m)``,
+    ``w = exp(m - m*)`` (exactly 0 for a piece that saw no key: its ``m``
+    is ``NEG_INF``), ``(L, A) = reduce_sum(l w, acc w)``, ``out = A /
+    max(L, 1e-30)`` in ``dtype``. ``merge_partials`` reduces a stack of
+    pieces with it; ``sharding.softmax_combine`` reduces across the ranks
+    of a mesh."""
+    w = torch.exp(m - reduce_max(m))
+    l_sum, acc_sum = reduce_sum(l * w, acc * w)
+    return (acc_sum / torch.clamp(l_sum, min=1e-30)).to(dtype)
+
+
+def merge_partials(parts, dtype):
+    """The attention over a whole cache from its pieces' ``(m, l, acc)``
+    (``decode_attention_partial_ref``), stacked and reduced by
+    ``softmax_merge``."""
+    m, l, acc = (torch.stack(t) for t in zip(*parts))
+    return softmax_merge(m, l, acc, dtype, lambda t: t.amax(dim=0),
+                         lambda a, b: (a.sum(dim=0), b.sum(dim=0)))
 
 
 # =============================== Mamba2 SSD ===================================

@@ -16,12 +16,13 @@ one process on the CPU:
 * train: one ``make_train_step(cfg, mesh=)`` step. Prefill and decode:
   under ``train.gathered`` (each block takes its leaves as it runs, as
   the step does), ``lm.prefill(mesh=)`` on this rank's rows (its blocks
-  tensor- and sequence-parallel over ``model``, as the step's), or
-  ``lm.decode_step(mesh=)`` on its rows at the cache's last slot. The
-  decode cache is stored as ``cache_specs`` places it (the KV sequence
-  over ``model``); the port's decode computes every block whole on every
-  rank, so each leaf is gathered over ``model`` at use, like a
-  parameter, and the updated leaf is cut back to the stored chunk;
+  tensor- and sequence-parallel over ``model``, as the step's; its cache
+  handed off in the decode layout), or ``lm.decode_step(mesh=)`` on its
+  rows at the cache's last slot. The decode cache is this rank's pieces
+  as ``cache_specs`` places it (``lm.init_cache(mesh=)``: the KV
+  sequence over ``model``, the Mamba state by heads), and decode takes
+  it as it stands: its blocks tensor-parallel, its attention
+  sequence-parallel over the rank's keys, no cache leaf gathered;
 * ``kernels.ops`` sends the fake CPU tensors to the plain versions; the
   analysis (``launch.hlo_analysis``) counts them at the ``ops``
   boundary, so the counts do not depend on that.
@@ -89,42 +90,10 @@ def _local_bytes(tensors) -> int:
                for t in tensors)
 
 
-def _place_tree(tree, specs, mesh):
-    """A cache tree as ``DTensor`` leaves placed by ``specs``."""
-    if isinstance(tree, dict):
-        return {k: _place_tree(v, specs[k], mesh) for k, v in tree.items()}
-    return sharding.place(tree, sharding.placements(specs, mesh), mesh)
-
-
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     return [tree]
-
-
-def _gather_tree(tree, mesh):
-    """Each cache leaf as decode uses it: whole over ``model``, the batch
-    shard kept. Collective."""
-    from torch.distributed.tensor import Replicate
-
-    if isinstance(tree, dict):
-        return {k: _gather_tree(v, mesh) for k, v in tree.items()}
-    use = [Replicate() if a == "model" else p
-           for a, p in zip(mesh.axis_names, tree.placements)]
-    return tree.redistribute(mesh.groups, use).to_local()
-
-
-def _cut_back(stored, full, mesh):
-    """Copy each updated leaf's chunk of ``model`` into the stored one."""
-    from torch.distributed.tensor import Replicate
-
-    if isinstance(stored, dict):
-        for k in stored:
-            _cut_back(stored[k], full[k], mesh)
-        return
-    cut = [p if a == "model" else Replicate()
-           for a, p in zip(mesh.axis_names, stored.placements)]
-    stored.to_local().copy_(sharding.local_chunk(full, cut, mesh))
 
 
 def build_cell(arch: str, shape_name: str, mesh, overrides=None):
@@ -161,18 +130,13 @@ def build_cell(arch: str, shape_name: str, mesh, overrides=None):
 
         return prefill_fn, (params, rows["tokens"]), cfg, params, held
 
-    cache = lm.init_cache(cfg, gb, sh["seq_len"], device="cpu")
-    stored = _place_tree(cache, sharding.cache_specs(cache, cfg, mesh, gb),
-                         mesh)
-    del cache
+    stored = lm.init_cache(cfg, rows["tokens"].shape[0], sh["seq_len"],
+                           device="cpu", mesh=mesh)
 
     def decode_fn(params, stored, tokens, pos):
         with train.gathered(params, layouts, mesh):
-            full = _gather_tree(stored, mesh)
-            out = lm.decode_step(params, full, tokens, pos, cfg, mesh=mesh,
-                                 **extra)
-        _cut_back(stored, full, mesh)
-        return out
+            return lm.decode_step(params, stored, tokens, pos, cfg,
+                                  mesh=mesh, **extra)
 
     return (decode_fn, (params, stored, rows["tokens"], sh["seq_len"] - 1),
             cfg, params, held + _leaves(stored))

@@ -116,7 +116,8 @@ def kernel_flops(name: str, a: dict) -> float:
     * ``attention`` (``attention_xla``): QK^T and PV over every (query,
       key) pair, masked or not: 4 B H Sq Sk D.
     * ``decode_attention`` (``decode_attention_naive``): the same over the
-      whole cache, whatever ``pos``: 4 B H S D.
+      whole cache, whatever ``pos``: 4 B H S D; ``decode_attention_partial``
+      the same over the rank's piece of it: 4 B H S_local D.
     * ``ssd`` (``ssd_chunked_xla``): S padded to whole chunks of Q, each
       chunk's four dots (C B^T, the intra-chunk product, the carried
       state's read and its update): nc 2 B Q (Q N + Q H P + 2 H P N).
@@ -126,7 +127,7 @@ def kernel_flops(name: str, a: dict) -> float:
     if name == "attention":
         b, sq, h, d = a["q"].shape
         return 4.0 * b * h * sq * a["k"].shape[1] * d
-    if name == "decode_attention":
+    if name in ("decode_attention", "decode_attention_partial"):
         b, _, h, d = a["q"].shape
         return 4.0 * b * h * a["k"].shape[1] * d
     if name == "ssd":

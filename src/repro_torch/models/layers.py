@@ -86,7 +86,7 @@ class Attention(nn.Module):
 
 
 def attention_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
-                    pos=None, collect_kv=False, shard=None):
+                    pos=None, collect_kv=False, shard=None, cache_len=None):
     """x: (B, S, d). Returns (out, new_cache).
 
     The heads are those of ``params``: with ``shard`` (``index`` and
@@ -104,17 +104,19 @@ def attention_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
     returned; ``pos`` is a host int. An int8 cache (``kv_cache_dtype``)
     also holds ``k_scale``/``v_scale`` (B, S_max, KV, 1) bf16: the new K/V
     are quantised into it, and the whole cache is read back dequantised.
+    With ``shard`` the cache is this rank's ``torch.chunk`` piece of the
+    sequence of a ``cache_len``-slot cache (``sharding.seq_piece``), as the
+    reference lays it out: the rank's q heads and the new token's K/V
+    heads are all-gathered whole over ``model`` (the token's K/V, a few
+    hundred bytes a row, where whole ``wk``/``wv`` would be d x KV x hd a
+    layer), the rank that owns the slot writes it (an int8 cache's values
+    and scales quantised alike on every rank), every rank takes the
+    attention of all the heads over its piece
+    (``ops.decode_attention_partial``) and ``sharding.softmax_combine``
+    finishes it; ``wo`` takes the rank's heads of the result.
     """
     cd = dtype_of(cfg.compute_dtype)
-    x = x.to(cd)
-    q = torch.einsum("bsd,dhk->bshk", x, params.wq.to(cd))
-    k = torch.einsum("bsd,dhk->bshk", x, params.wk.to(cd))
-    v = torch.einsum("bsd,dhk->bshk", x, params.wv.to(cd))
-    if cfg.qk_norm:
-        q = ops.rmsnorm(q, params.q_norm)
-        k = ops.rmsnorm(k, params.k_norm)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = project_qkv(params, x, positions, cfg)
 
     if cache is None:
         out = q if q.shape[2] == 0 else ops.attention(
@@ -123,29 +125,109 @@ def attention_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
         if collect_kv:
             keep = min(k.shape[1], cfg.window) if cfg.window > 0 else k.shape[1]
             new_cache = {"k": k[:, -keep:], "v": v[:, -keep:]}
+    elif shard is None:
+        out, new_cache = decode_attend(cache, q, k, v, pos, cfg), cache
     else:
-        s_max = cache["k"].shape[1]
-        slot = pos % s_max if cfg.window > 0 else pos
-        if not 0 <= slot < s_max:  # a slice past the end would drop the write
-            raise IndexError(f"decode position {pos} is outside the "
-                             f"{s_max}-slot KV cache")
-        if cfg.kv_cache_dtype == "int8":
-            for name, new in (("k", k), ("v", v)):
-                values, scale = _quant_kv(new)
-                cache[name][:, slot:slot + 1] = values
-                cache[f"{name}_scale"][:, slot:slot + 1] = scale
-            ck = cache["k"].to(cd) * cache["k_scale"].to(cd)
-            cv = cache["v"].to(cd) * cache["v_scale"].to(cd)
-        else:
-            cache["k"][:, slot:slot + 1] = k
-            cache["v"][:, slot:slot + 1] = v
-            ck, cv = cache["k"].to(cd), cache["v"].to(cd)
-        # ring cache: while cold (pos < window) only slots <= pos exist;
-        # once warm every slot is in the window by construction
-        pos_eff = min(pos, s_max - 1) if cfg.window > 0 else pos
-        out = ops.decode_attention(q, ck, cv, pos_eff)
+        q, k, v = _whole_heads(q, k, v, cfg, shard)
+        out = rank_heads(sharding.softmax_combine(*decode_attend(
+            cache, q, k, v, pos, cfg, shard, cache_len), q.dtype, shard),
+            cfg, shard)
         new_cache = cache
     return torch.einsum("bshk,hkd->bsd", out, params.wo.to(cd)), new_cache
+
+
+def decode_attend(cache, q, k, v, pos: int, cfg: ArchConfig, shard=None,
+                  cache_len=None):
+    """One decode position's attention over a cache, the new token's K/V
+    (B, 1, KV, hd) written into its slot first. Without ``shard``: the
+    attention (B, 1, H, hd) over the whole cache. With it, ``cache`` is
+    this rank's piece of a ``cache_len``-slot cache, q and the K/V hold
+    every head (``_whole_heads``), the K/V are written only where this
+    rank owns the slot, and the result is this rank's float32 partial
+    (``ops.decode_attention_partial``) for ``sharding.softmax_combine``."""
+    s_max = cache["k"].shape[1] if shard is None else cache_len
+    slot = pos % s_max if cfg.window > 0 else pos
+    if not 0 <= slot < s_max:  # a slice past the end would drop the write
+        raise IndexError(f"decode position {pos} is outside the "
+                         f"{s_max}-slot KV cache")
+    offset, n = sharding.seq_piece(s_max, shard)
+    if n != cache["k"].shape[1]:
+        raise ValueError(f"a {cache['k'].shape[1]}-slot K/V piece where "
+                         f"{s_max} slots over model give this rank {n}")
+    mine = shard is None or sharding.slot_owner(
+        slot, s_max, shard.size) == shard.index
+    ck, cv = write_kv(cache, k, v, slot - offset if mine else None, cfg)
+    # ring cache: while cold (pos < window) only slots <= pos exist;
+    # once warm every slot is in the window by construction
+    pos_eff = min(pos, s_max - 1) if cfg.window > 0 else pos
+    if shard is None:
+        return ops.decode_attention(q, ck, cv, pos_eff)
+    return ops.decode_attention_partial(q, ck, cv, pos_eff,
+                                        key_offset=offset)
+
+
+def rank_heads(out, cfg: ArchConfig, shard):
+    """The heads of the whole attention ``out`` (B, S, H, hd) that this
+    ``model`` rank's ``wo`` slice takes."""
+    q0, q1 = sharding.heads_of(cfg.num_heads, shard.index, shard.size)
+    return out[:, :, q0:q1]
+
+
+def head_ranges(cfg: ArchConfig, size: int):
+    """Per ``model`` rank of ``size``, the q heads and the kv heads its
+    slices project: ``(q ranges, kv ranges)``."""
+    return ([sharding.heads_of(cfg.num_heads, r, size) for r in range(size)],
+            [sharding.kv_heads_of(cfg, r, size) for r in range(size)])
+
+
+def project_qkv(params, x, positions, cfg: ArchConfig):
+    """Attention's q, k, v (B, S, heads, hd) in the compute type: the
+    projections on the heads of ``params``, the q/k norms, RoPE."""
+    cd = dtype_of(cfg.compute_dtype)
+    x = x.to(cd)
+    q = torch.einsum("bsd,dhk->bshk", x, params.wq.to(cd))
+    k = torch.einsum("bsd,dhk->bshk", x, params.wk.to(cd))
+    v = torch.einsum("bsd,dhk->bshk", x, params.wv.to(cd))
+    if cfg.qk_norm:
+        q = ops.rmsnorm(q, params.q_norm)
+        k = ops.rmsnorm(k, params.k_norm)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def write_kv(cache, k, v, at, cfg: ArchConfig):
+    """The new token's K/V (B, 1, KV, hd) into slot ``at`` of a cache (or
+    of this rank's piece of one; ``at`` None where another rank's piece
+    holds the slot: nothing is written); an int8 cache's values and
+    scales are quantised on every call alike. Returns the cache's K/V as
+    attention reads them (dequantised, in the compute type)."""
+    cd = dtype_of(cfg.compute_dtype)
+    mine = at is not None
+    at = slice(at, at + 1) if mine else None
+    if cfg.kv_cache_dtype == "int8":
+        for name, new in (("k", k), ("v", v)):
+            values, scale = _quant_kv(new)
+            if mine:
+                cache[name][:, at] = values
+                cache[f"{name}_scale"][:, at] = scale
+        return (cache["k"].to(cd) * cache["k_scale"].to(cd),
+                cache["v"].to(cd) * cache["v_scale"].to(cd))
+    if mine:
+        cache["k"][:, at] = k
+        cache["v"][:, at] = v
+    return cache["k"].to(cd), cache["v"].to(cd)
+
+
+def _whole_heads(q, k, v, cfg: ArchConfig, shard):
+    """Decode over ``model``: the rank's q heads and K/V heads (one token)
+    all-gathered into every head (``head_ranges``; two all-gathers: q,
+    then K and V together)."""
+    qr, kvr = head_ranges(cfg, shard.size)
+    q = sharding.gather_ranges(q, shard, 2, qr, cfg.num_heads)
+    kv = sharding.gather_ranges(torch.cat([k, v], dim=-1), shard, 2, kvr,
+                                cfg.num_kv_heads)
+    k, v = kv.split(k.shape[-1], dim=-1)
+    return q, k, v
 
 
 def _kv_of_heads(k, v, cfg: ArchConfig, shard):

@@ -144,7 +144,10 @@ def prefill(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
     are this rank's batch rows, and ``params`` are placed and held under
     ``models.train.gathered``, which hands each block its leaves as it
     runs: the tensor-parallel slices, the residual stream this rank's
-    rows of the sequence; the caches come back whole)."""
+    rows of the sequence). Over a ``model`` axis above 1 the caches come
+    back in the decode layout, ``DTensor``s over ``model`` holding this
+    rank's pieces (``sharding.cache_dtensors``: the K/V sequence of the
+    prompt, the Mamba state's heads and channels)."""
     tp = sharding.model_shard(mesh, tokens.shape[1])
     x = embed(params, tokens, cfg, patch_embeds, tp)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -153,14 +156,32 @@ def prefill(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
     x = sharding.gather_seq(x, tp)
     x = layers.rmsnorm_apply(params.final_norm, x[:, -1:], cfg)
     logits = unembed(params, x, cfg)
+    if tp is not None:
+        caches = sharding.cache_dtensors(caches, init_cache(
+            cfg, tokens.shape[0], tokens.shape[1], device="meta"), cfg, tp)
     return torch.argmax(logits, dim=-1), logits, caches
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None,
+               mesh=None):
     """Per-layer caches sized for ``seq_len``, stacked on a leading layer
     axis (hybrid: nested, as ``transformer.stack_apply`` takes them).
-    ``device=None`` is the CUDA card (raises without one)."""
+    ``device=None`` is the CUDA card (raises without one). Over a
+    ``mesh`` with a ``model`` axis above 1, ``batch`` is this rank's rows
+    and the cache is in the decode layout, as ``prefill`` hands it off:
+    only this rank's pieces (``sharding.cut_cache``) are allocated."""
     device = resolve_device(device)
+    tp = sharding.model_shard(mesh, 1)
+    if tp is not None:
+        whole = init_cache(cfg, batch, seq_len, device="meta")
+
+        def zeros(tree):
+            return {k: zeros(v) if isinstance(v, dict) else torch.zeros(
+                v.shape, dtype=v.dtype, device=device)
+                for k, v in tree.items()}
+
+        return sharding.cache_dtensors(
+            zeros(sharding.cut_cache(whole, cfg, tp)), whole, cfg, tp)
 
     def stacked(one, *lead):
         return {k: v.new_zeros(lead + v.shape) for k, v in one.items()}
@@ -182,23 +203,53 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
     return out
 
 
-def seat_cache(full, part):
+@torch.no_grad()
+def seat_cache(full, part, *, mesh=None):
     """Copy a prefill cache into the start of a longer one (the rest stays
     zero, as the reference's ``jnp.pad`` leaves it); returns ``full``.
     An int8 cache raises: prefill's K/V are in the compute type, and the
-    reference has no quantising hand-off (a cast would truncate them)."""
+    reference has no quantising hand-off (a cast would truncate them).
+    Over a ``mesh`` with a ``model`` axis above 1 both caches are in the
+    decode layout (``prefill(mesh=)``, ``init_cache(mesh=)``), whose K/V
+    pieces differ with the length: each layer's prompt K/V is gathered
+    (one all-gather a leaf and layer) and each rank keeps the slots it
+    owns in ``full``; the Mamba pieces are the same on both sides.
+    Collective."""
+    tp = sharding.model_shard(mesh, 1)
     for k, src in part.items():
         dst = full[k]
         if isinstance(dst, dict):
-            seat_cache(dst, src)
+            seat_cache(dst, src, mesh=mesh)
             continue
         if dst.dtype == torch.int8:
             raise ValueError(
                 f"cannot seat a {src.dtype} prefill cache into the int8 "
                 f"KV cache ({k!r}): prefill hands off compute-type K/V; "
                 "decode from an empty int8 cache instead")
-        dst[tuple(slice(0, n) for n in src.shape)] = src
+        if tp is None:
+            dst[tuple(slice(0, n) for n in src.shape)] = src
+        elif dst.shape == src.shape:        # the same pieces on both sides
+            dst.to_local().copy_(src.to_local())
+        else:
+            _seat_pieces(dst, src, tp)
     return full
+
+
+def _seat_pieces(dst, src, tp):
+    """The prompt's slots of ``src`` into the ranks that own them in the
+    longer ``dst`` (DTensors cut on the same dim over ``model``: the K/V
+    sequence), a layer at a time: one all-gather of the layer's pieces,
+    each rank keeping its own."""
+    mine, theirs = dst.to_local(), src.to_local()
+    d = dst.placements[0].dim - 1          # in one layer's leaf
+    offset, n = sharding.seq_piece(dst.shape[d + 1], tp)
+    length = src.shape[d + 1]
+    keep = max(0, min(offset + n, length) - offset)
+    for i in range(mine.shape[0]):
+        whole = sharding.all_gather(theirs[i], sharding.Axis(
+            tp.axis.group, tp.size, tp.index, d, length))
+        mine[i].narrow(d, 0, keep).copy_(
+            whole.narrow(d, min(offset, length), keep))
 
 
 @torch.no_grad()
@@ -208,12 +259,19 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig, *,
 
     tokens: (B, 1) (audio: (B, 1, C)); pos: the host int absolute position.
     Updates ``cache`` in place; returns (next ids, logits, cache).
-    ``mesh``: as in ``prefill``.
+    ``mesh``: as in ``prefill``; over a ``model`` axis above 1 ``cache``
+    is in the decode layout (``prefill(mesh=)``, ``init_cache(mesh=)``,
+    or placed by ``sharding.cache_specs``), each block runs on its
+    tensor-parallel slices and no cache leaf is gathered.
     """
+    pieces, cache_len = cache, None
+    if sharding.model_shard(mesh, 1) is not None:
+        pieces, cache_len = sharding.cache_pieces(cache)
     x = embed(params, tokens, cfg, patch_embeds)
     positions = torch.full((1,), pos, dtype=torch.long, device=tokens.device)
-    x, cache, _ = transformer.stack_apply(params.stack, x, positions, cfg,
-                                          caches=cache, pos=pos, mesh=mesh)
+    x, _, _ = transformer.stack_apply(params.stack, x, positions, cfg,
+                                      caches=pieces, pos=pos, mesh=mesh,
+                                      cache_len=cache_len)
     x = layers.rmsnorm_apply(params.final_norm, x, cfg)
     logits = unembed(params, x, cfg)
     return torch.argmax(logits, dim=-1), logits, cache

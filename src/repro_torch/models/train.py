@@ -176,24 +176,23 @@ _EXPERT = re.compile(r"(^|\.)moe\.w[gud]$")
 class _Layout(NamedTuple):
     store: list     # placements of the stored shard (its spec's)
     gather: tuple   # ``sharding.Axis``es (size > 1, mesh order) gathered
-                    # for the train step and prefill
+                    # for a use (the MoE experts keep their ``model`` shard)
     cut: tuple      # then (dim, start, stop) of the slice the block's
                     # tensor-parallel body takes (``sharding.tp_slice``)
-    whole: tuple    # ``Axis``es gathered for decode (every axis the leaf
-                    # is sharded on; the MoE experts keep ``model``)
     reduce: tuple   # axes (size > 1) the use copy and the shard both
                     # replicate: the gradient's all-reduce
     counted: bool   # whether this rank counts its shard in the clip norm
 
 
 def _layouts(params, cfg: ArchConfig, mesh) -> dict:
-    """Each parameter's ``_Layout`` on the bound ``mesh``. Decode uses
-    every leaf whole but the MoE experts, which keep their ``model``
-    shard. The train step and prefill use the slice each block's
-    tensor-parallel body computes on: a leaf whose stored ``model`` shard
-    is that slice keeps it and is gathered over the batch axes only;
-    another (stored whole over ``model``, as ``wq`` where the heads do
-    not divide, or cut elsewhere) is gathered whole and cut to the slice.
+    """Each parameter's ``_Layout`` on the bound ``mesh``: the train step,
+    prefill and decode use the slice each block's tensor-parallel body
+    computes on (a leaf outside the bodies, as the embedding and the head,
+    whole; the MoE experts their ``model`` shard): a leaf whose stored
+    ``model`` shard is that slice keeps it and is gathered over the batch
+    axes only; another (stored whole over ``model``, as ``wq`` where the
+    heads do not divide, or cut elsewhere) is gathered whole and cut to
+    the slice.
     A gradient sums over every axis the use copy is replicated on: over
     the gathered axes by the reduce-scatters of the gather's backward
     (the cut's backward pads the slice with zeros), over ``reduce`` by an
@@ -206,7 +205,7 @@ def _layouts(params, cfg: ArchConfig, mesh) -> dict:
     for name, spec in sharding.param_specs(params, cfg, mesh).items():
         store = sharding.placements(spec, mesh)
         keep_model = _EXPERT.search(name) is not None
-        whole, reduce, model_ax = [], [], None
+        sharded, reduce, model_ax = [], [], None
         for axis, s in zip(mesh.axis_names, store):
             if mesh.shape[axis] == 1 or (keep_model and axis == "model"
                                          and s.is_shard()):
@@ -214,41 +213,43 @@ def _layouts(params, cfg: ArchConfig, mesh) -> dict:
             if s.is_replicate():
                 reduce.append(axis)
                 continue
-            if any(a.dim == s.dim for a in whole):
+            if any(a.dim == s.dim for a in sharded):
                 raise ValueError(f"{name}: spec {spec} cuts one dim over "
                                  "two axes")
-            whole.append(sharding.Axis(mesh.groups.get_group(axis),
-                                       mesh.shape[axis],
-                                       sharding.coordinate(mesh, axis), s.dim,
-                                       shapes[name][s.dim]))
+            sharded.append(sharding.Axis(mesh.groups.get_group(axis),
+                                         mesh.shape[axis],
+                                         sharding.coordinate(mesh, axis),
+                                         s.dim, shapes[name][s.dim]))
             if axis == "model":
-                model_ax = whole[-1]
-        gather, cut = whole, ()
+                model_ax = sharded[-1]
+        gather, cut = sharded, ()
         piece = sharding.tp_slice(name, cfg, index, m)
         if piece is not None:
             if model_ax is not None and (model_ax.dim,) + sharding.heads_of(
                     model_ax.length, index, m) == piece:
-                gather = [a for a in whole if a is not model_ax]
+                gather = [a for a in sharded if a is not model_ax]
             else:
                 cut = piece
         counted = all(sharding.coordinate(mesh, a) == 0
                       for a, s in zip(mesh.axis_names, store)
                       if s.is_replicate())
-        out[name] = _Layout(store, tuple(gather), cut, tuple(whole),
-                            tuple(reduce), counted)
+        out[name] = _Layout(store, tuple(gather), cut, tuple(reduce),
+                            counted)
     return out
 
 
 class _GatherOnUse(torch.autograd.Function):
     """A stored shard as the layers use it: all-gathered over each axis of
-    ``axes`` in mesh order. The backward reduce-scatters the gradient,
-    summing, over the same axes in reverse order, back to the shard."""
+    ``axes`` in mesh order (a view of the last gather's buffer: a leaf
+    gathered on another dim than its first is not copied whole again).
+    The backward reduce-scatters the gradient, summing, over the same
+    axes in reverse order, back to the shard."""
 
     @staticmethod
     def forward(ctx, shard, axes):
         ctx.axes = axes
         for ax in axes:
-            shard = sharding.all_gather(shard, ax)
+            shard = sharding.all_gather(shard, ax, contiguous=False)
         return shard
 
     @staticmethod
@@ -284,23 +285,22 @@ def _sharded(params, shards: dict, layouts: dict):
     nothing is gathered or cut (every shard axis of size 1) no hook is
     set, and the layers run as they do without a mesh."""
     held = {id(t): layouts[k] for k, t in shards.items()
-            if layouts[k].whole or layouts[k].cut}
+            if layouts[k].gather or layouts[k].cut}
 
-    def use_copy(t, whole):
+    def use_copy(t):
         lay = held[id(t)]
-        axes = lay.whole if whole else lay.gather
-        u = _GatherOnUse.apply(t, axes) if axes else t
-        if lay.cut and not whole:
+        u = _GatherOnUse.apply(t, lay.gather) if lay.gather else t
+        if lay.cut:
             dim, lo, hi = lay.cut
             u = u.narrow(dim, lo, hi - lo)
         return u
 
     @contextlib.contextmanager
-    def use(module, names=None, whole=False):
+    def use(module, names=None):
         """``module``'s leaves as the layers use them for the block:
-        gathered (``_GatherOnUse``) and cut to the tensor-parallel slice,
-        or with ``whole`` (decode) gathered whole."""
-        leaves = {k: use_copy(t, whole) for k, t in module.named_parameters()
+        gathered (``_GatherOnUse``) and cut to the tensor-parallel
+        slice."""
+        leaves = {k: use_copy(t) for k, t in module.named_parameters()
                   if id(t) in held and (names is None or k in names)}
         with _swapped(module, leaves):
             yield
@@ -359,9 +359,10 @@ def place_params(params, cfg: ArchConfig, mesh) -> dict:
 def gathered(params, layouts: dict, mesh):
     """The placed model as serving over a mesh uses it (``lm.prefill``
     and ``lm.decode_step`` with ``mesh=``): it holds this rank's shards,
-    and each block gathers its leaves as it runs (the MoE experts over
-    the batch axes only) and drops them after; the embedding and the head
-    likewise where they are used. Collective."""
+    and each block gathers its leaves as it runs, cut to its
+    tensor-parallel slices (the MoE experts over the batch axes only), and
+    drops them after; the embedding and the head likewise, whole, where
+    they are used. Collective."""
     shards = {k: local_shard(p) for k, p in params.named_parameters()}
     with _sharded(params, shards, layouts):
         yield params

@@ -15,26 +15,29 @@ reference's; the hybrid's are nested, ``{"groups": (n_groups, period,
 updates them in place and returns the same dict. ``aux`` is the MoE
 blocks' router loss summed over the layers (0.0 without experts).
 
-``mesh`` (a ``distributed.sharding.Mesh``) makes the train step and
-prefill tensor- and sequence-parallel over ``model``, the layout the
-reference's ``constrain`` hints pin (``sharding.ModelShard``): between
-blocks the residual stream is this rank's rows of the sequence (whole
-where the sequence does not divide ``model``). A block normalises its
-rows, gathers the sequence (``sharding.gather_seq``), runs its body on
-this rank's slices (``layers.attention_apply`` on its heads,
-``layers.mlp_apply`` on its ``ff`` slice, ``mamba2.mamba_apply`` on its
-SSD heads, ``moe.moe_apply`` on its expert shard), sums the partial
-over ``model`` into its rows (``sharding.scatter_seq``) and adds it to
-the residual. Prefill's cache comes back whole: the K/V heads and the
-Mamba state are all-gathered. Decode runs every block whole on every
-rank (the MoE partial summed over ``model``).
+``mesh`` (a ``distributed.sharding.Mesh``) makes the train step,
+prefill and decode tensor- and sequence-parallel over ``model``, the
+layout the reference's ``constrain`` hints pin (``sharding.ModelShard``):
+between blocks the residual stream is this rank's rows of the sequence
+(whole where the sequence does not divide ``model``, as decode's one
+position). A block normalises its rows, gathers the sequence
+(``sharding.gather_seq``), runs its body on this rank's slices
+(``layers.attention_apply`` on its heads, ``layers.mlp_apply`` on its
+``ff`` slice, ``mamba2.mamba_apply`` on its SSD heads, ``moe.moe_apply``
+on its expert shard), sums the partial over ``model`` into its rows
+(``sharding.scatter_seq``) and adds it to the residual. The cache is in
+the reference's decode layout (``sharding.cache_specs``): each K/V leaf
+this rank's ``torch.chunk`` piece of the sequence, each Mamba state its
+heads and channels. Prefill hands it off so, a layer at a time (the
+layer's K/V heads gathered, this rank's piece kept); decode attention is
+sequence-parallel over it (``layers.attention_apply``).
 
 Over a mesh the model holds this rank's stored shards, and ``on_use``
 names the hook that hands a module's leaves over as the layers use them
-(``models/train.py``: gathered and cut to the body's slice, or gathered
-whole for decode). Each block takes its leaves inside the function it
-runs (and checkpoints), and gives them back after it; the embedding and
-the head are taken where ``lm`` uses them (``in_use``).
+(``models/train.py``: gathered and cut to the body's slice). Each block
+takes its leaves inside the function it runs (and checkpoints), and
+gives them back after it; the embedding and the head are taken where
+``lm`` uses them (``in_use``).
 
 In training (grad mode on, no caches) each block runs under
 ``cfg.remat``, as the reference's ``_maybe_remat``: ``"full"`` keeps only
@@ -73,16 +76,24 @@ class DenseBlock(nn.Module):
 
 
 def dense_block_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
-                      pos=None, collect_cache=False, mesh=None, tp=None):
+                      pos=None, collect_cache=False, mesh=None, tp=None,
+                      cache_len=None):
     """Returns (x, new_cache, aux). With ``tp`` (a ``sharding.ModelShard``)
-    ``x`` is this rank's rows and the leaves its slices."""
+    ``x`` is this rank's rows and the leaves its slices, and the K/V cache
+    this rank's piece of the sequence (``cache_len`` slots in all at
+    decode)."""
     h, new_cache = layers.attention_apply(
         params.attn, sharding.gather_seq(
             layers.rmsnorm_apply(params.ln1, x, cfg), tp), positions, cfg,
-        cache=cache, pos=pos, collect_kv=collect_cache, shard=tp)
-    if tp is not None and new_cache is not None:
+        cache=cache, pos=pos, collect_kv=collect_cache, shard=tp,
+        cache_len=cache_len)
+    if tp is not None and collect_cache and cache is None:
+        # the layer's kv heads gathered, then this rank's piece of the
+        # sequence kept (a copy: the whole is dropped with the layer)
         kv = [sharding.kv_heads_of(cfg, r, tp.size) for r in range(tp.size)]
+        offset, n = sharding.seq_piece(new_cache["k"].shape[1], tp)
         new_cache = {k: sharding.gather_ranges(t, tp, 2, kv, cfg.num_kv_heads)
+                     .narrow(1, offset, n).clone()
                      for k, t in new_cache.items()}
     x = x + sharding.scatter_seq(h, tp)
     normed = sharding.gather_seq(layers.rmsnorm_apply(params.ln2, x, cfg), tp)
@@ -104,22 +115,19 @@ class MambaBlock(nn.Module):
 def mamba_block_apply(params, x, cfg: ArchConfig, *, cache=None,
                       collect_cache=False, tp=None):
     """Returns (x, new_cache, 0.0); ``tp`` as in ``dense_block_apply``:
-    the gated norm's sum of squares is summed over ``model``."""
+    the gated norm's sum of squares is summed over ``model``, and the
+    cache (decode's, and prefill's hand-off) is this rank's stored pieces
+    (``sharding.mamba_cache_to_body`` / ``mamba_cache_from_body``)."""
     norm_sum = None if tp is None else functools.partial(
         sharding.all_reduce, mesh=tp.mesh, axes=("model",))
+    if tp is not None and cache is not None:
+        cache = sharding.mamba_cache_to_body(cache, cfg, tp)
     h, new_cache = mamba2.mamba_apply(
         params.mix, sharding.gather_seq(
             layers.rmsnorm_apply(params.ln, x, cfg), tp), cfg,
         cache=cache, collect_state=collect_cache, norm_sum=norm_sum)
     if tp is not None and new_cache is not None:
-        heads = [sharding.heads_of(cfg.ssm_heads, r, tp.size)
-                 for r in range(tp.size)]
-        cx = new_cache["conv_x"]
-        cx = cx.reshape(cx.shape[:2] + (-1, cfg.ssm_head_dim))
-        new_cache = {**new_cache, "ssd": sharding.gather_ranges(
-            new_cache["ssd"], tp, 1, heads, cfg.ssm_heads),
-            "conv_x": sharding.gather_ranges(cx, tp, 2, heads, cfg.ssm_heads)
-            .flatten(2)}
+        new_cache = sharding.mamba_cache_from_body(new_cache, cfg, tp)
     return x + sharding.scatter_seq(h, tp), new_cache, 0.0
 
 
@@ -137,10 +145,9 @@ def _remat(apply, cfg: ArchConfig, blk, *args, **kwargs):
     """``apply(blk, *args, **kwargs)`` under the config's remat policy when
     autograd records, else as it stands, with ``blk``'s leaves handed
     over by the gather-on-use hook set now (``on_use``; a recompute uses
-    the same hook): cut to the body's slices where ``kwargs["tp"]`` is
-    set, else whole. Where one is set, ``"none"`` runs as ``"full"``. The
-    blocks draw no random numbers, so the RNG state is not saved for the
-    recompute."""
+    the same hook): cut to the body's slices. Where one is set,
+    ``"none"`` runs as ``"full"``. The blocks draw no random numbers, so
+    the RNG state is not saved for the recompute."""
     use = _on_use
     remat = "full" if cfg.remat == "none" and use is not None else cfg.remat
     if remat == "none" or not torch.is_grad_enabled():
@@ -169,12 +176,11 @@ _on_use = None      # the hook ``on_use`` names for its block, else None
 
 @contextlib.contextmanager
 def on_use(hook):
-    """For the block, ``hook(module, names, whole=False)`` is the context
-    in which ``module``'s leaves (those of ``names``, or all) are the
-    copies the layers compute on: the tensor-parallel body's slices, or
-    with ``whole`` the whole leaves (set only where a leaf is gathered or
-    cut). The blocks take the hook when they run, so a recompute in the
-    backward gathers through the same one."""
+    """For the block, ``hook(module, names=None)`` is the context in which
+    ``module``'s leaves (those of ``names``, or all) are the copies the
+    layers compute on: the tensor-parallel body's slices (set only where
+    a leaf is gathered or cut). The blocks take the hook when they run,
+    so a recompute in the backward gathers through the same one."""
     global _on_use
     if _on_use is not None:
         raise RuntimeError("a gather-on-use hook is already set")
@@ -197,7 +203,7 @@ def _block(apply, use, blk, *args, **kwargs):
     (``None``: as they stand) for the call."""
     if use is None:
         return apply(blk, *args, **kwargs)
-    with use(blk, whole=kwargs.get("tp") is None):
+    with use(blk):
         return apply(blk, *args, **kwargs)
 
 
@@ -235,7 +241,7 @@ def _stack(caches):
 
 
 def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache,
-         mesh=None, tp=None):
+         mesh=None, tp=None, cache_len=None):
     """Walk ``blocks`` (all dense or all Mamba). Decode writes each block's
     new cache into its view ``caches[k][i]``; prefill returns the blocks'
     caches stacked in order."""
@@ -246,7 +252,8 @@ def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache,
         if isinstance(blk, DenseBlock):
             x, nc, a = _remat(dense_block_apply, cfg, blk, x, positions, cfg,
                               cache=view, pos=pos,
-                              collect_cache=collect_cache, mesh=mesh, tp=tp)
+                              collect_cache=collect_cache, mesh=mesh, tp=tp,
+                              cache_len=cache_len)
         else:
             x, nc, a = _remat(mamba_block_apply, cfg, blk, x, cfg,
                               cache=view, collect_cache=collect_cache, tp=tp)
@@ -263,16 +270,19 @@ def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache,
 
 
 def stack_apply(params, x, positions, cfg: ArchConfig, *, caches=None,
-                pos=None, collect_cache=False, mesh=None):
+                pos=None, collect_cache=False, mesh=None, cache_len=None):
     """Returns (x, caches_or_None, aux_sum). Over a ``mesh`` with a
     ``model`` axis above 1, the train step and prefill take ``x`` as this
     rank's rows (``sharding.seq_rows``) and return them; decode takes and
-    returns the whole ``x``."""
+    returns the whole ``x`` (one position: the rows stay whole) and
+    ``caches`` as this rank's pieces, its K/V leaves of ``cache_len``
+    slots in all."""
     decode = caches is not None
-    tp = None if decode else sharding.model_shard(mesh, positions.shape[0])
+    tp = sharding.model_shard(mesh, positions.shape[0])
     kw = dict(pos=pos, collect_cache=collect_cache, mesh=mesh, tp=tp)
     if cfg.family != "hybrid":
-        return _run(params.blocks, x, positions, cfg, caches=caches, **kw)
+        return _run(params.blocks, x, positions, cfg, caches=caches,
+                    cache_len=cache_len, **kw)
 
     def view(name, g):
         return {k: v[g] for k, v in caches[name].items()} if decode else None
@@ -284,7 +294,8 @@ def stack_apply(params, x, positions, cfg: ArchConfig, *, caches=None,
         # the same weights after every group, gathered at each use; its
         # own cache slot each time
         x, ac, _ = _remat(dense_block_apply, cfg, params.shared_attn, x,
-                          positions, cfg, cache=view("shared_attn", g), **kw)
+                          positions, cfg, cache=view("shared_attn", g),
+                          cache_len=cache_len, **kw)
         groups.append(gc)
         shared.append(ac)
     if hasattr(params, "tail"):

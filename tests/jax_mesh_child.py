@@ -126,31 +126,40 @@ def task_train(inp, out_path):
 
 def task_lm_mesh(inp, out_path):
     """The reference's jitted ``lm.prefill(mesh=)`` and ``decode_step(
-    mesh=)`` of ``arch`` on a (1, 2) mesh, from the parameters in the input
-    (``<arch>/...``): a prefill of ``prompt``, its cache padded to
-    ``seq + decode`` (as ``launch.serve``'s generation seats it), then
-    ``decode`` greedy steps; every step's logits and ids."""
-    arch, decode = str(inp["arch"]), int(inp["decode"])
-    cfg = reduced(get_arch(arch))
+    mesh=)`` on a (1, 2) mesh for each case of ``cases`` (JSON: [[tag,
+    arch, cache length or null, config overrides, empty], ...]), from the
+    parameters in the input (``<arch>/...``): a prefill of ``<tag>/prompt``,
+    its cache padded to the cache length (else prompt + ``decode``, as
+    ``launch.serve``'s generation seats it), then ``decode`` greedy steps;
+    every step's logits and ids under ``<tag>/``. ``empty``: no prefill;
+    ``decode`` steps from an empty cache at positions 0, 1, ..., from the
+    prompt's first token, numbered from 0."""
+    decode = int(inp["decode"])
     mesh = mesh_of((1, 2))
-    flat = {k: v for k, v in inp.items() if k.startswith(arch + "/")}
-    params = jax.tree.map(jnp.asarray, unflatten(flat, arch + "/"))
-    prompt = jnp.asarray(inp["prompt"])
-    b, s = prompt.shape
-    ids, logits, cache = jax.jit(
-        lambda p, t: lm.prefill(p, t, cfg, mesh=mesh))(params, prompt)
-    full = lm.init_cache(cfg, b, s + decode)
-    cache = jax.tree.map(lambda d, c: jnp.pad(
-        c, [(0, x - y) for x, y in zip(d.shape, c.shape)]).astype(d.dtype),
-        full, cache)
-    step = jax.jit(lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg,
-                                                       mesh=mesh))
-    res = {"logits/0": np.asarray(logits), "ids/0": np.asarray(ids)}
-    tok = ids[:, -1:]
-    for i in range(decode):
-        tok, logits, cache = step(params, cache, tok, jnp.int32(s + i))
-        res[f"logits/{i + 1}"] = np.asarray(logits)
-        res[f"ids/{i + 1}"] = np.asarray(tok)
+    res = {}
+    for tag, arch, cache_len, over, empty in json.loads(str(inp["cases"])):
+        cfg = dataclasses.replace(reduced(get_arch(arch)), **over)
+        flat = {k: v for k, v in inp.items() if k.startswith(arch + "/")}
+        params = jax.tree.map(jnp.asarray, unflatten(flat, arch + "/"))
+        prompt = jnp.asarray(inp[f"{tag}/prompt"])
+        b, s = prompt.shape[0], 0 if empty else prompt.shape[1]
+        cache = lm.init_cache(cfg, b, cache_len or s + decode)
+        tok, first = prompt[:, :1], 0
+        if not empty:
+            ids, logits, part = jax.jit(
+                lambda p, t: lm.prefill(p, t, cfg, mesh=mesh))(params, prompt)
+            cache = jax.tree.map(lambda d, c: jnp.pad(
+                c, [(0, x - y) for x, y in zip(d.shape, c.shape)]).astype(
+                    d.dtype), cache, part)
+            res[f"{tag}/logits/0"] = np.asarray(logits)
+            res[f"{tag}/ids/0"] = np.asarray(ids)
+            tok, first = ids[:, -1:], 1
+        step = jax.jit(lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg,
+                                                           mesh=mesh))
+        for i in range(decode):
+            tok, logits, cache = step(params, cache, tok, jnp.int32(s + i))
+            res[f"{tag}/logits/{first + i}"] = np.asarray(logits)
+            res[f"{tag}/ids/{first + i}"] = np.asarray(tok)
     np.savez(out_path, **res)
 
 

@@ -7,12 +7,13 @@
 * ``params`` (fake init only) equals the reference's parameter tree for
   all ten archs, and ``cfg.param_count()`` of both packages but for the
   leaves that formula omits on four archs (``FORMULA_GAP``);
-* a cell's flops equal the analysis of the mesh-free step or prefill at
-  this rank's batch rows on a model whose blocks hold this rank's
-  tensor-parallel slices (``sharding.tp_slice``: the shard bodies run
-  whole-sequence, as the mesh runs them between ``gather_seq`` and
-  ``scatter_seq``), and of the mesh-free decode at its rows on the whole
-  model (decode runs every block whole);
+* a cell's flops equal the analysis of the mesh-free step, prefill or
+  decode at this rank's batch rows on a model whose blocks hold this
+  rank's tensor-parallel slices (``sharding.tp_slice``: the shard bodies
+  run whole-sequence, as the mesh runs them between ``gather_seq`` and
+  ``scatter_seq``), the embedding and head whole; for decode, with the
+  mesh-free attention over the whole cache at the rank's heads replaced
+  by the mesh's, every head over the rank's piece of the cache;
 * the train cell's collective bytes equal the ring formula over its
   gathers on use (a block's twice under remat; the tensor-parallel
   leaves over ``data`` only), the reduce-scatters of their gradients,
@@ -24,9 +25,13 @@
 * llama3-405b x ``train_4k`` at 1 and 2 layers: a layer adds less to
   the peak than one block's whole leaves; llama3-405b x ``prefill_32k``
   at 1 layer peaks under an eighth of the whole-heads attention scores;
+  llama3-405b x ``decode_32k`` at 1 layer makes no tensor as long as the
+  whole cache and peaks under its arguments (the rank's piece of the
+  cache among them), a block's slices and the head gathered whole;
 * llama3-405b x ``long_500k`` is ``skipped`` with the reference's reason;
 * every fake group is torn down after its cell.
 """
+import dataclasses
 import math
 
 import jax
@@ -153,13 +158,31 @@ def test_flops_are_the_mesh_free_call_at_the_local_rows(records, arch, shape,
             got = hlo_analysis.analyze(lm.prefill, params.requires_grad_(False),
                                        rows["tokens"], cfg)
         else:
-            cache = lm.init_cache(cfg, rows["tokens"].shape[0],
-                                  sh["seq_len"], device="cpu")
-            got = hlo_analysis.analyze(lm.decode_step,
-                                       params.requires_grad_(False), cache,
-                                       rows["tokens"], sh["seq_len"] - 1, cfg)
+            got = _mesh_free_decode(params, cfg, rows, sh["seq_len"])
     assert records[arch, shape]["hlo"]["flops"] == got["flops"]
     assert records[arch, shape]["hlo"]["by_op"] == got["by_op"]
+
+
+def _mesh_free_decode(params, cfg, rows, seq):
+    """The mesh-free decode at the rows on rank 0's slices (its cache of
+    the kv heads its q heads read, over every slot), its attention over
+    the whole cache at its heads swapped for the mesh's: every head over
+    the rank's ``seq / MODEL`` slots (``ops.decode_attention_partial``,
+    counted as the reference's decode at those keys)."""
+    _rank_slices(params, cfg, 0)
+    kv0, kv1 = sharding.kv_heads_of(cfg, 0, MODEL)
+    cache = lm.init_cache(dataclasses.replace(cfg, num_kv_heads=kv1 - kv0),
+                          rows["tokens"].shape[0], seq, device="cpu")
+    got = hlo_analysis.analyze(lm.decode_step, params.requires_grad_(False),
+                               cache, rows["tokens"], seq - 1, cfg)
+    local = got["by_op"].pop("ops.decode_attention")
+    b, h, d = rows["tokens"].shape[0], cfg.num_heads, cfg.head_dim
+    mine = cfg.num_layers * hlo_analysis.kernel_flops(
+        "decode_attention_partial",
+        {"q": torch.empty(b, 1, h, d), "k": torch.empty(b, seq // MODEL, 1, d)})
+    got["by_op"]["ops.decode_attention_partial"] = mine
+    got["flops"] += mine - local
+    return got
 
 
 def _smollm_layout():
@@ -292,6 +315,53 @@ def test_prefill_shards_attention_heads_over_model(tmp_path):
         4.0 * rows * heads * s * s * cfg.head_dim
     scores = rows * cfg.num_heads * s * s * 4
     assert rec["memory"]["peak_device_bytes"] < scores / 8
+
+
+def test_decode_holds_the_cache_in_its_sequence_pieces(tmp_path):
+    """llama3-405b x ``decode_32k`` on (16, 16) at 1 layer: each rank's 8
+    rows over its 2048 of the 32768 slots. No tensor of the step spans
+    the whole sequence (a K/V leaf gathered over ``model`` would), and
+    the rank peaks under its arguments (its piece of the cache, 64 MiB,
+    among them) plus a block's tensor-parallel slices plus the head
+    gathered whole, with two of the head's ``model`` pieces in flight in
+    its gather. The parent's decode gathered every cache leaf whole and
+    ran every block whole: 207.7 GiB a rank at 126 layers."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    sh = tconf.SHAPES["decode_32k"]
+    cfg = tconf.get_arch("llama3-405b", num_layers=1)
+    widest = []
+
+    class Shapes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.dim():
+                    widest.append(max(t.shape))
+            return out
+
+    rec = dryrun.run_cell("llama3-405b", "decode_32k", multi_pod=False,
+                          overrides={"num_layers": 1}, results_dir=tmp_path,
+                          verbose=False)
+    assert rec["status"] == "ok", rec.get("trace")
+    with dryrun.fake_world(DATA * MODEL):
+        mesh = sharding.bind(dryrun.make_production_mesh(device="cpu"))
+        with FakeTensorMode():
+            fn, args, *_ = dryrun.build_cell("llama3-405b", "decode_32k",
+                                             mesh, {"num_layers": 1})
+            piece = args[1]["k"].to_local().shape
+            with Shapes():
+                fn(*args)
+    assert piece[1:3] == (sh["global_batch"] // DATA, sh["seq_len"] // MODEL)
+    assert sh["seq_len"] not in widest
+    assert sh["seq_len"] // MODEL in widest      # the scores over the piece
+    with FakeTensorMode():
+        model = lm.LanguageModel(cfg)
+        block = _rank_slices(model, cfg, 0).stack.blocks[0]
+        slices = sum(p.numel() * p.element_size() for p in block.parameters())
+        head = model.head.numel() * model.head.element_size()
+    bound = rec["memory"]["argument_bytes"] + slices + head * (1 + 2 / MODEL)
+    assert rec["memory"]["peak_device_bytes"] < bound
 
 
 def test_microbatches_smaller_than_the_batch_shards_run_whole(tmp_path):

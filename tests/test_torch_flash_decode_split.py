@@ -1,11 +1,14 @@
-"""The decode kernel's split decomposition, on the CPU.
+"""The decode kernel's split decomposition and its partial mode, on the
+CPU.
 
 The CUDA kernel cannot run here, so its arithmetic is held through its
 plain two-pass version ``ref.decode_attention_split_ref`` (each piece's
 float32 (m, l, acc), then the log-sum-exp merge), against the one-pass
 plain version and against the JAX package's Pallas kernel in interpret
 mode, on numpy inputs from a seed. The host planner ``plan_splits`` is
-held to its properties. Tolerances: float32 atol=rtol 1e-6 (the sums run
+held to its properties. The partial mode's plain version
+(``ref.decode_attention_partial_ref``, a piece of the cache as a mesh rank
+holds it) merged over the pieces is held against the one-pass version. Tolerances: float32 atol=rtol 1e-6 (the sums run
 in another order), bf16 2e-2 (the JAX kernel keeps the probabilities in
 float32 for the PV product where the plain versions round them to bf16,
 and the sums run in another order before the output's bf16 rounding).
@@ -76,6 +79,54 @@ def test_split_ref_equals_itself_across_split_counts():
         torch.testing.assert_close(
             ref.decode_attention_split_ref(q, k, v, 543, n), one,
             atol=1e-6, rtol=1e-6)
+
+
+PARTIAL_CASES = [  # B, S, H, KV, D, pos, window, pieces' lengths, dtype
+    (2, 100, 8, 2, 64, 99, 0, (100,), "float32"),           # one piece
+    (2, 100, 8, 2, 64, 60, 0, (30, 30, 40), "float32"),     # the last sees none
+    (2, 100, 8, 2, 64, 99, 0, (0, 50, 0, 50), "bfloat16"),  # empty pieces
+    (1, 700, 8, 2, 64, 650, 100, (200, 200, 200, 100), "float32"),  # window
+    (1, 700, 8, 2, 64, 650, 100, (200, 200, 200, 100), "bfloat16"),
+    (2, 20, 4, 2, 64, 8, 0, (10, 10), "float32"),           # rank 1 sees none
+    (1, 37, 9, 3, 64, 36, 0, (8, 8, 8, 8, 5), "bfloat16"),  # five, uneven
+    (1, 37, 9, 3, 64, 0, 0, (8, 8, 8, 8, 5), "float32"),    # pos 0
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,pos,window,lengths,dtype",
+                         PARTIAL_CASES)
+def test_partials_merged_are_the_whole_decode(b, s, h, kv, d, pos, window,
+                                              lengths, dtype):
+    """``ref.decode_attention_partial_ref`` over 1-5 contiguous pieces of
+    the cache (some empty, some with no visible key: ``m`` is then
+    ``NEG_INF`` and ``l``, ``acc`` are 0), merged by
+    ``ref.merge_partials`` (the cross-rank combine's arithmetic), against
+    the one-pass ``ref.decode_attention_ref`` over the whole cache."""
+    assert sum(lengths) == s
+    rng = np.random.default_rng(pos + s + len(lengths))
+    _, q = _pair(rng, (b, 1, h, d), dtype)
+    _, k = _pair(rng, (b, s, kv, d), dtype)
+    _, v = _pair(rng, (b, s, kv, d), dtype)
+    parts, offset = [], 0
+    for n in lengths:
+        m, l, acc = ref.decode_attention_partial_ref(
+            q, k[:, offset:offset + n], v[:, offset:offset + n], pos,
+            key_offset=offset, window=window)
+        lo, hi = ref.decode_key_range(n, pos, window, offset)
+        assert m.shape == l.shape == (b, 1, h, 1) and acc.shape == q.shape
+        assert m.dtype == l.dtype == acc.dtype == torch.float32
+        if hi == lo:
+            assert bool((m == ref.NEG_INF).all()) and not l.any()
+            assert not acc.any()
+        parts.append((m, l, acc))
+        offset += n
+    got = ref.merge_partials(parts, q.dtype)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), ref.decode_attention_ref(q, k, v, pos,
+                                              window=window).float(),
+        atol=tol, rtol=tol)
 
 
 PLAN_CASES = [  # B, KV, S, pos, window, SMs

@@ -143,6 +143,13 @@ def _rand(gen, *shape):
     return torch.randn(shape, generator=gen)
 
 
+def _decode_at_the_rank_keys(q, k, v, pos, key_offset=0, window=0):
+    """The reference's decode over a rank's piece of the cache (its slot
+    0 key ``key_offset``): what the partial mode is counted as."""
+    return j_ref.decode_attention_naive(q, k, v, pos - key_offset,
+                                        window=window)
+
+
 def _kernel_cases():
     """(name, ops entry point, args, kwargs, the reference's XLA version
     with the same arguments). Two shapes each; attention causal and
@@ -164,6 +171,13 @@ def _kernel_cases():
                       (_rand(gen, b, 1, h, d), _rand(gen, b, s, kv, d),
                        _rand(gen, b, s, kv, d), pos), {"window": win},
                       j_ref.decode_attention_naive))
+    for b, s, h, kv, d, pos, off, win in ((2, 40, 4, 2, 64, 17, 20, 0),
+                                          (3, 64, 6, 3, 32, 100, 64, 8)):
+        cases.append(("decode_attention_partial", ops.decode_attention_partial,
+                      (_rand(gen, b, 1, h, d), _rand(gen, b, s, kv, d),
+                       _rand(gen, b, s, kv, d), pos),
+                      {"key_offset": off, "window": win},
+                      _decode_at_the_rank_keys))
     for b, s, h, p, n, chunk in ((2, 64, 4, 32, 16, 16),
                                  (1, 40, 8, 16, 32, 16)):
         cases.append(("ssd", ops.ssd,

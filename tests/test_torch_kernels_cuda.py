@@ -467,6 +467,67 @@ def test_flash_decode_kernel_matches_plain_version(b, s, h, kv, d, pos,
            TOL[dtype])
 
 
+PARTIAL_CASES = [  # B, S, H, KV, D, pos, window, model ranks
+    (2, 1024, 8, 2, 64, 1023, 0, 4),
+    (2, 1000, 8, 8, 64, 500, 0, 3),        # the last piece sees no key
+    (1, 2048, 4, 2, 128, 2047, 512, 4),    # window: three pieces see none
+    (1, 20, 4, 2, 64, 8, 0, 2),            # a prompt of 8 in a 20-slot cache
+    (1, 10, 4, 2, 64, 9, 0, 16),           # fewer slots than ranks: empties
+    (8, 4096, 128, 8, 128, 2500, 0, 16),   # llama3-405b's heads, 16 a group
+    (1, 544, 32, 32, 112, 543, 0, 5),      # D 112, uneven pieces
+]
+
+
+def _pieces(s, ranks):
+    """(offset, n) of each model rank's ``torch.chunk`` piece of s slots."""
+    import types
+
+    from repro_torch.distributed import sharding
+
+    return [sharding.seq_piece(s, types.SimpleNamespace(index=r, size=ranks))
+            for r in range(ranks)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,d,pos,window,ranks", PARTIAL_CASES,
+                         ids=["-".join(map(str, c)) for c in PARTIAL_CASES])
+def test_flash_decode_partial_mode_matches_plain_version(b, s, h, kv, d, pos,
+                                                         window, ranks, dtype):
+    """Each rank's piece through the kernel's partial mode against
+    ``ref.decode_attention_partial_ref`` (a piece with no visible key is
+    ``NEG_INF, 0, 0`` and launches nothing), and the pieces merged against
+    the whole cache's decode. ``m`` and ``l`` are held as they are, ``acc``
+    divided by ``l`` (the piece's attention: the unnormalised sum grows
+    with the keys, and the kernel rounds its weights to bf16 against its
+    running max, the plain version against the final one)."""
+    _needs_card()
+    rng = np.random.default_rng(pos + s + ranks)
+    q = _randn(rng, (b, 1, h, d), dtype)
+    k = _randn(rng, (b, s, kv, d), dtype)
+    v = _randn(rng, (b, s, kv, d), dtype)
+    parts = []
+    for offset, n in _pieces(s, ranks):
+        kp, vp = k.narrow(1, offset, n), v.narrow(1, offset, n)
+        lo, hi = ref.decode_key_range(n, pos, window, offset)
+        before = flash_decode.flash_decode_partial.launches
+        got = flash_decode.flash_decode_partial(q, kp, vp, pos,
+                                                key_offset=offset,
+                                                window=window)
+        assert flash_decode.flash_decode_partial.launches == before + (
+            hi > lo)
+        expect = ref.decode_attention_partial_ref(q, kp, vp, pos,
+                                                  key_offset=offset,
+                                                  window=window)
+        for g, e in zip(got[:2], expect[:2]):
+            _check(g, e, TOL[dtype])
+        _check(got[2] / got[1].clamp_min(1e-30),
+               expect[2] / expect[1].clamp_min(1e-30), TOL[dtype])
+        parts.append(got)
+    _check(ref.merge_partials(parts, q.dtype),
+           ref.decode_attention_ref(q, k, v, pos, window=window), TOL[dtype])
+
+
 SSD_CASES = [  # B, S, H, P, N, chunk (of the plain version), a_log draw
     (1, 8, 16, 32, 32, 16, "normal"),       # a serve prompt at reduced()
     (2, 128, 4, 32, 16, 32, "normal"),

@@ -3,27 +3,35 @@ on the CPU, at ``reduced()`` (float32).
 
 The parameters are placed by ``sharding.param_specs``
 (``models.train.place_params``) and, under ``models.train.gathered``,
-each block gathers its leaves as it runs, as the training step does:
-every leaf whole but the MoE experts, which keep their ``model`` shard
-for the tensor-parallel body. A prefill of 2 x 16
-tokens and 4 greedy decode steps (``tests/torch_mesh_worker.py``'s
-``generate``):
+each block gathers its leaves as it runs, cut to its tensor-parallel
+slices, as the training step does. A prefill of 2 x 16 tokens seated into
+the decode cache and 4 greedy decode steps (``tests/torch_mesh_worker.py``'s
+``generate``), the cache in the reference's decode layout (each K/V leaf
+the rank's piece of the sequence, the Mamba state its heads):
 
-* over a gloo (1, 2) world, reduced smollm-135m and mixtral-8x7b (the
+* over a gloo (1, 2) world, each of ``LM_MESH_CASES`` equals the
+  mesh-free port within 1e-5: reduced smollm-135m and mixtral-8x7b (the
   tensor-parallel attention, MLP and MoE bodies, the residual stream
-  the rank's rows of the prompt, the cache gathered whole) equal the
-  mesh-free port within 1e-5; and mixtral with a prompt of 15, which
-  the model axis does not divide (the rows whole on both ranks, the
-  partials all-reduced);
-* the same mixtral run equals the reference's jitted ``lm.prefill(mesh=)``
-  and ``decode_step(mesh=)`` on a (1, 2) JAX host mesh, from the
-  reference's own parameters, within ``tests/test_torch_lm.py``'s
-  atol = rtol = 5e-5, with the same greedy ids
-  (``tests/jax_mesh_child.py``);
+  the rank's rows of the prompt, decode attention sequence-parallel over
+  the cache pieces); mixtral with a prompt of 15, which the model axis
+  does not divide (the rows whole on both ranks, the partials
+  all-reduced); mamba2-2.7b and zamba2-7b (the Mamba state by heads, the
+  hybrid's shared-attention cache slot a group); smollm-135m's int8 KV
+  cache decoding from empty; a prompt of 8 seated into a 20-slot cache,
+  whose decode crosses from rank 0's slots into rank 1's (at position 8
+  rank 1 sees no key); and a ring cache of 6 slots that wraps;
+* the cases on the reference's own parameters (the mixtral runs,
+  mamba2, zamba2 and the int8 cache) equal the reference's jitted
+  ``lm.prefill(mesh=)`` and ``decode_step(mesh=)`` on a (1, 2) JAX host
+  mesh within ``tests/test_torch_lm.py``'s atol = rtol = 5e-5, with the
+  same greedy ids (``tests/jax_mesh_child.py``); the two cases of
+  uneven heads (3 SSD heads, 3 q / 1 kv head over 2) are held against
+  the mesh-free port only;
 * at a world of 1 (an in-process group, the (1, 1) mesh) every step is
   the mesh-free one bit for bit.
 """
 import concurrent.futures
+import json
 
 import jax
 import numpy as np
@@ -42,19 +50,33 @@ from repro_torch.launch import mesh as launch_mesh
 MESH_FREE = 1e-5
 REF_TOL = dict(atol=5e-5, rtol=5e-5)
 REF_ARCH = "mixtral_8x7b"
+# the cases on the reference's parameters, which it also runs: the plain
+# mixtral, a prompt of 15, mamba2, zamba2, smollm's int8 cache from empty,
+# the prompt of 8 seated into 20 slots, the ring
+REF_CASES = [c for c in worker.LM_MESH_CASES if c[1] == "ref"]
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The gloo (1, 2) world's generation and the reference's, at once."""
     tmp = tmp_path_factory.mktemp("lm_mesh")
-    jcfg = j_reduced(j_get_arch(REF_ARCH))
-    tree = jax.jit(lambda k: j_lm.init_params(k, jcfg))(jax.random.key(0))
-    ref = jax_mesh_child.flatten(tree, REF_ARCH + "/")
+    ref = {}
+    for arch in dict.fromkeys(c[0] for c in REF_CASES):
+        jcfg = j_reduced(j_get_arch(arch))
+        tree = jax.jit(lambda k: j_lm.init_params(k, jcfg))(jax.random.key(0))
+        ref.update(jax_mesh_child.flatten(tree, arch + "/"))
     (tmp / "w12").mkdir()
     np.savez(tmp / "w12" / "ref_params.npz", **ref)
-    inputs = {"arch": REF_ARCH, "decode": worker.LM_PROMPT["decode"],
-              "prompt": worker.lm_prompt(reduced(get_arch(REF_ARCH))), **ref}
+    cases, prompts = [], {}
+    for case in REF_CASES:
+        cfg, _, kw = worker.lm_case_config(case, tmp / "w12")
+        tag = worker.lm_case_tag(case)
+        over = {k: v for k, v in worker._lm_case(case)[3].items()
+                if k not in ("cache", "empty")}
+        cases.append([tag, case[0], kw["cache_len"], over, kw["empty"]])
+        prompts[f"{tag}/prompt"] = worker.lm_prompt(cfg, kw["seq"])
+    inputs = {"cases": json.dumps(cases), **prompts,
+              "decode": worker.LM_PROMPT["decode"], **ref}
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         world = pool.submit(worker.spawn, "lm_mesh", 2, tmp / "w12")
         jref = pool.submit(jax_mesh_child.run, "lm_mesh", inputs, tmp / "jax")
@@ -62,17 +84,18 @@ def runs(tmp_path_factory):
                 "tmp": tmp / "w12"}
 
 
-def _mesh_free(arch, source, tmp, *seq):
-    cfg, params = worker.case_params(arch, source, tmp)
-    return worker.generate(cfg, params, None, *seq)
+def _mesh_free(case, tmp):
+    cfg, params, kw = worker.lm_case_config(case, tmp)
+    return worker.generate(cfg, params, None, **kw)
 
 
 @pytest.mark.parametrize("case", worker.LM_MESH_CASES,
-                         ids=["-".join(map(str, c))
+                         ids=[worker.lm_case_id(c)
                               for c in worker.LM_MESH_CASES])
 def test_gloo_world_of_two_matches_the_mesh_free_port(runs, case):
     got = runs["mesh"][worker.lm_case_tag(case)]
-    expect = _mesh_free(*case[:2], runs["tmp"], *case[2:])
+    expect = _mesh_free(case, runs["tmp"])
+    assert len(got["logits"]) == len(expect["logits"])
     for step, (a, b) in enumerate(zip(got["logits"], expect["logits"])):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=MESH_FREE,
                                    rtol=MESH_FREE, err_msg=f"step {step}")
@@ -80,12 +103,29 @@ def test_gloo_world_of_two_matches_the_mesh_free_port(runs, case):
         assert torch.equal(a, b)
 
 
-def test_mixtral_over_the_mesh_matches_the_reference_mesh(runs):
-    got, ref = runs["mesh"][REF_ARCH], runs["jax"]
+def _against_the_reference(got, ref, tag):
     for step, (logits, ids) in enumerate(zip(got["logits"], got["ids"])):
-        np.testing.assert_allclose(logits.numpy(), ref[f"logits/{step}"],
+        np.testing.assert_allclose(logits.numpy(),
+                                   ref[f"{tag}/logits/{step}"],
                                    err_msg=f"step {step}", **REF_TOL)
-        np.testing.assert_array_equal(ids.numpy(), ref[f"ids/{step}"])
+        np.testing.assert_array_equal(ids.numpy(), ref[f"{tag}/ids/{step}"])
+
+
+def test_mixtral_over_the_mesh_matches_the_reference_mesh(runs):
+    _against_the_reference(runs["mesh"][REF_ARCH], runs["jax"], REF_ARCH)
+
+
+@pytest.mark.parametrize("case", REF_CASES[1:],
+                         ids=[worker.lm_case_id(c) for c in REF_CASES[1:]])
+def test_decode_layout_cases_match_the_reference_mesh(runs, case):
+    """The prompt that the model axis does not divide, mamba2 and zamba2
+    (the Mamba state by heads, the hybrid's shared-attention cache),
+    smollm's int8 cache from empty, the prompt of 8 seated into a 20-slot
+    cache (decode crossing from rank 0's slots into rank 1's) and the ring
+    of 6 slots that wraps, against the reference's jitted prefill and
+    decode on its (1, 2) mesh."""
+    tag = worker.lm_case_tag(case)
+    _against_the_reference(runs["mesh"][tag], runs["jax"], tag)
 
 
 @pytest.mark.parametrize("arch", list(dict.fromkeys(

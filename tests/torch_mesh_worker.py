@@ -185,17 +185,61 @@ def task_ep12(rank, world, out: Path):
 
 
 # prefill + decode over a (1, WORLD) mesh (tests/test_torch_lm_mesh.py):
-# (arch, parameters[, prompt length]); a prompt of 15 over a model axis
-# of 2 keeps the rows whole
+# (arch, parameters[, prompt length[, options]]); a prompt of 15 over a
+# model axis of 2 keeps the rows whole. Options: ``cache``, the decode
+# cache's slots (else prompt + decode); ``empty``, decode from an empty
+# cache at position 0 (no prefill: the int8 cache takes no hand-off);
+# any other key a config override. Over 2 ranks: Mamba's state by heads
+# (mamba2, zamba2 with its shared block's cache slot a group); a prompt
+# of 8 seated into a 20-slot cache, whose decode at 8-11 writes slots 8-9
+# on rank 0 and 10-11 on rank 1 (at 8 rank 1 sees no key); a ring of 6
+# slots (3 a rank) that wraps at position 18; 3 SSD heads over 2 (the
+# state stored whole, ``conv_x``'s channel pieces not the heads'); 3 q
+# heads and 1 kv head over 2 (the heads gathered unevenly, both ranks
+# reading the one kv head)
 LM_MESH_CASES = (("smollm_135m", "port"), ("mixtral_8x7b", "ref"),
-                 ("mixtral_8x7b", "ref", 15))
+                 ("mixtral_8x7b", "ref", 15),
+                 ("mamba2_2p7b", "ref"), ("zamba2_7b", "ref"),
+                 ("smollm_135m", "ref", None,
+                  {"empty": True, "kv_cache_dtype": "int8"}),
+                 ("mixtral_8x7b", "ref", 8, {"cache": 20}),
+                 ("mixtral_8x7b", "ref", 16, {"window": 6}),
+                 ("mamba2_2p7b", "port", None,
+                  {"d_model": 192, "ssm_head_dim": 128}),
+                 ("smollm_135m", "port", None,
+                  {"num_heads": 3, "num_kv_heads": 1}))
 LM_PROMPT = dict(batch=2, seq=16, decode=4)
 COUNT_PSUM_NUMEL = 1000   # the analysed all-reduce's float32 elements
 
 
+def _lm_case(case) -> tuple:
+    """(arch, parameters, prompt length or None, options)."""
+    return tuple(case[:2]) + (case[2] if len(case) > 2 else None,
+                              case[3] if len(case) > 3 else {})
+
+
 def lm_case_tag(case) -> str:
-    """An ``LM_MESH_CASES`` entry's key in the results: arch[/seq=S]."""
-    return case[0] + "".join(f"/seq={s}" for s in case[2:])
+    """An ``LM_MESH_CASES`` entry's key in the results: arch[/seq=S][/k=v
+    for each option]."""
+    arch, _, seq, opts = _lm_case(case)
+    return arch + (f"/seq={seq}" if seq else "") + "".join(
+        f"/{k}={v}" for k, v in opts.items())
+
+
+def lm_case_id(case) -> str:
+    """An ``LM_MESH_CASES`` entry's test id."""
+    return "-".join([str(c) for c in case[:3]] + [
+        f"{k}={v}" for k, v in _lm_case(case)[3].items()])
+
+
+def lm_case_config(case, out: Path):
+    """(cfg, the port's model, ``generate``'s keyword arguments) of an
+    ``LM_MESH_CASES`` entry."""
+    arch, source, seq, opts = _lm_case(case)
+    over = {k: v for k, v in opts.items() if k not in ("cache", "empty")}
+    cfg, params = case_params(arch, source, out, over)
+    return cfg, params, dict(seq=seq, cache_len=opts.get("cache"),
+                             empty=opts.get("empty", False))
 
 
 def lm_prompt(cfg, seq=None):
@@ -205,23 +249,32 @@ def lm_prompt(cfg, seq=None):
     ).astype(np.int32)
 
 
-def generate(cfg, params, mesh=None, seq=None):
-    """Prefill of ``lm_prompt`` (``seq`` tokens, else ``LM_PROMPT``'s) then
-    ``LM_PROMPT["decode"]`` greedy decode steps, over ``mesh`` (its
-    parameters placed and gathered by their use layout) or without one:
-    every step's logits and ids."""
+def generate(cfg, params, mesh=None, seq=None, cache_len=None, empty=False):
+    """Prefill of ``lm_prompt`` (``seq`` tokens, else ``LM_PROMPT``'s)
+    seated into a decode cache of ``cache_len`` slots (else prompt +
+    decode) then ``LM_PROMPT["decode"]`` greedy decode steps, over
+    ``mesh`` (its parameters placed and gathered by their use layout, the
+    cache in the decode layout) or without one: every step's logits and
+    ids. ``empty``: no prefill; decode from an empty cache at position 0,
+    from the prompt's first token."""
     prompt = torch.from_numpy(lm_prompt(cfg, seq))
-    b, s, n = LM_PROMPT["batch"], prompt.shape[1], LM_PROMPT["decode"]
+    b, n = LM_PROMPT["batch"], LM_PROMPT["decode"]
+    s = 0 if empty else prompt.shape[1]
     ctx = contextlib.nullcontext()
     if mesh is not None:
         ctx = train_mod.gathered(params, train_mod.place_params(
             params, cfg, mesh), mesh)
     with ctx:
-        ids, logits, cache = lm.prefill(params, prompt, cfg, mesh=mesh)
-        cache = lm.seat_cache(lm.init_cache(cfg, b, s + n, device="cpu"),
-                              cache)
-        out_logits, out_ids = [logits], [ids]
-        tok = ids[:, -1:]
+        cache = lm.init_cache(cfg, b, cache_len or s + n, device="cpu",
+                              mesh=mesh)
+        out_logits, out_ids = [], []
+        if empty:
+            tok = prompt[:, :1]
+        else:
+            ids, logits, part = lm.prefill(params, prompt, cfg, mesh=mesh)
+            cache = lm.seat_cache(cache, part, mesh=mesh)
+            out_logits, out_ids = [logits], [ids]
+            tok = ids[:, -1:]
         for i in range(n):
             tok, logits, cache = lm.decode_step(params, cache, tok, s + i,
                                                 cfg, mesh=mesh)
@@ -234,10 +287,9 @@ def task_lm_mesh(rank, world, out: Path):
     mesh = sharding.bind(sharding.make_mesh(
         (1, world), ("data", "model"), devices=["cpu"] * world))
     result = {}
-    for arch, source, *seq in LM_MESH_CASES:
-        cfg, params = case_params(arch, source, out)
-        result[lm_case_tag((arch, source, *seq))] = generate(
-            cfg, params, mesh, *seq)
+    for case in LM_MESH_CASES:
+        cfg, params, kw = lm_case_config(case, out)
+        result[lm_case_tag(case)] = generate(cfg, params, mesh, **kw)
     if rank == 0:
         torch.save(result, out / "result.pt")
 
