@@ -199,7 +199,26 @@ Phases, one JSON line each (after the card's name and power limit):
     path as ``call_ms``), the bound from the bytes of the rank's visible
     K/V, the partial mode's launches (counts set to 0 just before the
     ranks' run, read just after: one a rank that sees a key);
-22. a ``kernels`` line with each kernel's launches on its main path (the
+22. ``vocab_head``: the vocab-parallel embedding, head, argmax and loss
+    and the context-parallel attention, one card standing in for the
+    ``TP_MODEL`` (16) ranks of ``model`` in turn, at llama3-405b's full
+    width (d 16384, vocab 128256: 8016 rows a rank; bf16 from seed 0)
+    through the mesh code's own helpers (``lm.vocab_lookup``,
+    ``unembed``, ``vocab_argmax``, ``vocab_nll``; ``layers.cp_project``,
+    ``cp_attend``), each all-reduce a reduction over a stack of the
+    ranks: the summed lookups bit for bit the whole table's; decode's 8
+    rows' logits within ``LM_TOL`` of the whole head's and their ids;
+    the loss over ``TP_TOKENS`` within ``VOCAB_LOSS_RTOL`` of the whole
+    float32 loss, each rank's head gradient within ``LM_TOL`` of the
+    largest magnitude of the whole gradient's columns; one layer's
+    ``cp_attention`` body over ``TP_TOKENS`` in the ranks' rows through
+    ``flash_attention`` with ``q_offset`` against the whole layer and
+    the whole kernel, with its launches (counts set to 0 just before the
+    ranks' calls, read just after); the times of a rank's shard product
+    against the whole one and of the kernel with ``q_offset`` (cold L2,
+    CUDA events), and rank 0's loss path's peak memory against the whole
+    head's;
+23. a ``kernels`` line with each kernel's launches on its main path (the
     fleet-scale speculative serve for ``route_score``, and its launches
     on the actor and mesh paths beside them, with the mesh blocks'
     cases; execute-serving for the others, and
@@ -209,9 +228,11 @@ Phases, one JSON line each (after the card's name and power limit):
     numbers at each full-width arch's bf16 case (``FULL_CASE``), the
     training cases' forward and backward times and each kernel's
     launches in one ``train_full`` step and one ``train_mesh`` step, and
-    those of the ``tp_bodies`` and ``sp_decode`` phases (``flash_decode``
-    with its partial mode's rank 0 numbers and launches there);
-23. the last line, ``{"ok": true, "device": {...}}``.
+    those of the ``tp_bodies``, ``sp_decode`` and ``vocab_head`` phases
+    (``flash_decode`` with its partial mode's rank 0 numbers and launches
+    there, ``flash_attention`` with its last rank's ``q_offset`` numbers
+    in the ``cp_attention`` body);
+24. the last line, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32: TF32 is off for cuBLAS and
 cuDNN. Any failed check exits non-zero; without a card, or outside a
@@ -313,6 +334,11 @@ TP_TOL = {"attention": LM_TOL["bfloat16"], "mlp": LM_TOL["bfloat16"],
 # TP_MODEL ranks; at 20000 rank 9 sees part of its slice, ranks 10-15 none
 SP_DECODE = dict(arch="llama3_405b", overrides={}, rows=8, slots=32768,
                  positions=(32767, 20000))
+# the vocab-parallel head and loss and the context-parallel attention on
+# one card: ``arch``'s head and one layer over TP_MODEL ranks in turn, at
+# decode_32k's rank rows and TP_TOKENS
+VOCAB_HEAD = dict(arch="llama3_405b", overrides={}, decode_rows=8)
+VOCAB_LOSS_RTOL = 1e-3              # the ranks' loss vs the whole float32 one
 
 
 def emit(obj):
@@ -3039,17 +3065,343 @@ def phase_sp_decode(torch, F, configs, ops, ref, layers, transformer,
     return launches, summary
 
 
+def phase_vocab_head(torch, F, configs, ops, ref, lm, layers, sharding,
+                     counters, dev="cuda"):
+    """``VOCAB_HEAD`` on the card: the vocab-parallel embedding, head,
+    argmax and loss and the context-parallel attention, one card standing
+    in for the ``TP_MODEL`` ranks of ``model`` in turn, through the mesh
+    code's own helpers (``sharding.vocab_piece``, ``lm.vocab_lookup``,
+    ``lm.unembed``, ``lm.vocab_argmax``, ``lm.vocab_nll``;
+    ``layers.cp_project``, ``layers.cp_attend``), each all-reduce a max,
+    min or sum over a stack of the ranks. The embedding table and the
+    head are drawn from seed 0 (N(0, 1) d^-0.5, bf16), the stream x ~ N(0,
+    1). Held: the ranks' summed lookups equal the whole table's bit for
+    bit; decode's rows' stitched logits within atol = rtol ``LM_TOL`` of
+    the whole head's, their ids equal ``torch.argmax`` of the stitched
+    logits, and the whole head's where its top two logits lie further
+    apart than twice the logits' difference; the loss over ``TP_TOKENS``
+    within ``VOCAB_LOSS_RTOL`` of the whole float32 logsumexp loss (rank
+    0 alone, the others' sums folded in as constants, the same); each
+    rank's head gradient within ``LM_TOL`` of the largest magnitude of
+    the same columns of the whole head's gradient. Then one layer's
+    ``cp_attention`` body over ``TP_TOKENS``: each rank's q, K and V on
+    its rows, the K/V of all the ranks stitched (the all-gather), each
+    rank's queries through ``flash_attention`` at their first position
+    (``q_offset``), each rank's rows against the same rows of the whole
+    layer's attention, each rank's kernel output against the whole
+    kernel's rows and ranks 0 and 15 against the plain version, each
+    within ``LM_TOL`` times that rank's own max|ref|; the same checks
+    must reject rank 15's kernel output at a ``q_offset`` one 64-row
+    tile short and at 0; the launches (counts set to 0 just before the ranks' calls,
+    read just after: one a rank). Times (cold L2, CUDA events): a rank's
+    shard product against the whole one at decode's rows and at the
+    loss's tokens, a rank's ``flash_attention`` with ``q_offset`` against
+    the whole kernel, the plain version and SDPA; peak memory of rank
+    0's loss path (forward and backward) against the whole head's.
+    Returns the attention launches and rank 15's numbers. On the CPU
+    (``dev``) the checks only."""
+    import types
+
+    on_card = dev == "cuda"
+    flush = (torch.empty(2**28, dtype=torch.float32, device=dev)  # 1 GiB
+             if on_card else None)
+
+    def cold_ms(fn, iters):
+        return time_cold_ms(torch, fn, iters, flush) if on_card else None
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def peak_of(fn):
+        """Bytes allocated above the start at the peak of ``fn()``."""
+        if not on_card:
+            fn()
+            return None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    t0 = time.perf_counter()
+    card = None
+    if on_card:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        card = smi.stdout.strip().splitlines()[0] if smi.stdout else None
+    cfg = configs.get_arch(VOCAB_HEAD["arch"], num_layers=1,
+                           **VOCAB_HEAD["overrides"])
+    dt = getattr(torch, cfg.compute_dtype)
+    tol = LM_TOL[cfg.compute_dtype]
+    d, vocab, m = cfg.d_model, cfg.vocab, TP_MODEL
+    ranks = [types.SimpleNamespace(index=r, size=m, rows=True)
+             for r in range(m)]
+    pieces = [sharding.vocab_piece(cfg, sh) for sh in ranks]
+    check(all(p is not None for p in pieces),
+          f"vocab_head: {vocab} does not divide {m}")
+    width = pieces[0][1] - pieces[0][0]
+    starts = torch.tensor([lo for lo, _ in pieces], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    def stacked_max(t):
+        return t.amax(dim=0)
+
+    def stacked_sum(a, b):
+        return a.sum(dim=0), b.sum(dim=0)
+
+    def ns(**leaves):
+        return types.SimpleNamespace(**leaves)
+
+    table = draw(vocab, d, scale=d ** -0.5)
+    head = draw(d, vocab, scale=d ** -0.5)
+    rows, (b, s) = VOCAB_HEAD["decode_rows"], TP_TOKENS
+    tok = torch.randint(vocab, (rows, 1), generator=gen, device=dev)
+    x1 = draw(rows, 1, d)
+    # the embedding: each rank's lookup of every token in its rows of the
+    # table, summed (the reduce-scatter / all-reduce)
+    embed_sum = sum(lm.vocab_lookup(table[lo:hi], tok, lo).to(dt)
+                    for lo, hi in pieces)
+    embed_ok = bool(torch.equal(embed_sum, F.embedding(tok, table)))
+    check(embed_ok, "vocab_head: the ranks' lookups off the whole table's")
+    # decode's rows: the ranks' logits and the argmax over them
+    shard_logits = [lm.unembed(ns(head=head[:, lo:hi]), x1, cfg)
+                    for lo, hi in pieces]
+    stitched = torch.cat(shard_logits, dim=-1)
+    ids = lm.vocab_argmax(torch.stack(shard_logits), starts[:, None, None],
+                          vocab, stacked_max, lambda t: t.amin(dim=0))
+    whole = lm.unembed(ns(head=head), x1, cfg)
+    logits_err = err(stitched, whole)
+    top2 = whole.float().topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * logits_err
+    whole_ids = torch.argmax(whole, dim=-1)
+    check(torch.allclose(stitched.float(), whole.float(), atol=tol, rtol=tol)
+          and torch.equal(ids, torch.argmax(stitched, dim=-1))
+          and torch.equal(ids[clear], whole_ids[clear]),
+          f"vocab_head decode: logits off the whole head's by {logits_err}, "
+          f"ids {ids.flatten().tolist()} against "
+          f"{whole_ids.flatten().tolist()}")
+    # the loss over TP_TOKENS, and each rank's head gradient
+    x = draw(b, s, d)
+    labels = torch.randint(vocab, (b, s), generator=gen, device=dev)
+    w_whole = head.detach().requires_grad_(True)
+    losses = {}
+
+    def whole_loss():
+        l32 = lm.unembed(ns(head=w_whole), x, cfg).float()
+        gold = torch.gather(l32, -1, labels[..., None])[..., 0]
+        loss = (torch.logsumexp(l32, dim=-1) - gold).mean()
+        loss.backward()
+        losses["whole"] = loss.detach()
+
+    whole_peak = peak_of(whole_loss)
+    loss_whole, g_whole = losses["whole"], w_whole.grad
+    w_ranks = head.detach().requires_grad_(True)
+    seen = {}
+
+    def keep_sum(a, b):
+        seen["s"], seen["g"] = a.detach(), b.detach()
+        return stacked_sum(a, b)
+
+    def keep_max(t):
+        seen["m"] = stacked_max(t)
+        return seen["m"]
+
+    stack = torch.stack([lm.unembed(ns(head=w_ranks[:, lo:hi]), x, cfg)
+                         for lo, hi in pieces])
+    loss_ranks = lm.vocab_nll(stack, labels, starts[:, None, None],
+                              keep_max, keep_sum).mean()
+    loss_ranks.backward()
+    loss_ranks = loss_ranks.detach()
+    del stack
+    g_ranks = w_ranks.grad
+    grad_errs = []
+    for lo, hi in pieces:
+        ref_cols = g_whole[:, lo:hi].float()
+        grad_errs.append({"max_abs_err": err(g_ranks[:, lo:hi], ref_cols),
+                          "max_abs_ref": float(ref_cols.abs().max())})
+    w0 = head[:, pieces[0][0]:pieces[0][1]].contiguous().requires_grad_(True)
+    rest = {k: seen[k] if k == "m" else seen[k][1:].sum(dim=0)
+            for k in ("m", "s", "g")}
+
+    def rank0_loss():
+        logits = lm.unembed(ns(head=w0), x, cfg)
+        loss = lm.vocab_nll(
+            logits, labels, pieces[0][0],
+            lambda t: torch.maximum(t, rest["m"]),
+            lambda a, b: (a + rest["s"], b + rest["g"])).mean()
+        loss.backward()
+        losses["rank0"] = loss.detach()
+
+    rank0_peak = peak_of(rank0_loss)
+    loss_rel = abs(float(loss_ranks) - float(loss_whole)) / abs(
+        float(loss_whole))
+    rank0_rel = abs(float(losses["rank0"]) - float(loss_whole)) / abs(
+        float(loss_whole))
+    check(loss_rel <= VOCAB_LOSS_RTOL and rank0_rel <= VOCAB_LOSS_RTOL
+          and all(e["max_abs_err"] <= tol * e["max_abs_ref"]
+                  for e in grad_errs),
+          f"vocab_head loss: {float(loss_ranks)} / rank 0 "
+          f"{float(losses['rank0'])} against {float(loss_whole)}, the "
+          f"head gradients {grad_errs}")
+    del g_whole, g_ranks, w_whole, w_ranks
+    w_shard = head[:, pieces[0][0]:pieces[0][1]].contiguous()
+
+    def product(xs, w):
+        return bound_of(nbytes_of(xs, w) + xs.numel() // d * w.shape[1]
+                        * xs.element_size(), 2 * xs.numel() * w.shape[1],
+                        MATMUL_OPS[cfg.compute_dtype])
+
+    times = {}
+    for name, xs in (("decode_rows", x1), ("loss_tokens", x)):
+        times[name] = {
+            "shape": [list(xs.shape), list(w_shard.shape), list(head.shape)],
+            "shard_ms": cold_ms(lambda: xs @ w_shard, 20),
+            "whole_ms": cold_ms(lambda: xs @ head, 10),
+            "shard_bound_ms": product(xs, w_shard)[0],
+            "shard_bound_by": product(xs, w_shard)[1],
+            "whole_bound_ms": product(xs, head)[0]}
+    emit({"phase": "vocab_head", "arch": VOCAB_HEAD["arch"], "card": card,
+          "model": m, "vocab": vocab, "d_model": d, "dtype": cfg.compute_dtype,
+          "embed_sum_equals_whole": embed_ok,
+          "decode_logits_max_abs_err": logits_err, "tolerance": tol,
+          "decode_ids": ids.flatten().tolist(),
+          "decode_ids_whole": whole_ids.flatten().tolist(),
+          "decode_rows_clear": int(clear.sum()),
+          "loss_whole": float(loss_whole), "loss_ranks": float(loss_ranks),
+          "loss_rank0": float(losses["rank0"]), "loss_rel_err": loss_rel,
+          "loss_rank0_rel_err": rank0_rel,
+          "loss_rtol": VOCAB_LOSS_RTOL,
+          "head_grad_max_abs_err": max(e["max_abs_err"] for e in grad_errs),
+          "head_grad_limit": tol * min(e["max_abs_ref"] for e in grad_errs),
+          "peak_bytes_rank0_loss": rank0_peak,
+          "peak_bytes_whole_loss": whole_peak, "times": times})
+    del head, table, w_shard, w0
+    # cp_attention: one layer's attention, the ranks' rows in turn
+    attn = layers.Attention(cfg, gen).to(dev).requires_grad_(False)
+    positions = torch.arange(s, device=dev)
+    parts = [layers.cp_project(attn, xr, positions, cfg, sh) for xr, sh in
+             zip(torch.chunk(x, m, dim=1), ranks)]
+    kv = torch.cat([p[1] for p in parts], dim=1)        # the all-gather
+    if on_card:
+        torch.cuda.synchronize()
+    zero_counts(counters)
+    outs = [layers.cp_attend(attn, q, kv, cfg, sh)[0]
+            for (q, _), sh in zip(parts, ranks)]
+    if on_card:
+        torch.cuda.synchronize()
+    launches = read_counts(counters)
+    check(not on_card or launches["flash_attention"] == m,
+          f"vocab_head cp_attention: launches {launches}")
+    whole_out = layers.attention_apply(attn, x, positions, cfg)[0]
+
+    def rank_rows(t, r):
+        return torch.chunk(t, m, dim=1)[r]
+
+    def held(got, expect):
+        """``(within, max|got - expect|, max|expect|)``: within ``tol``
+        times the rank's own largest value (a late rank's outputs are
+        ~0.03, so an absolute ``tol`` would pass a tile's keys lost)."""
+        e, scale = err(got, expect), float(expect.float().abs().max())
+        return e <= tol * scale, e, scale
+
+    layer = [held(o, rank_rows(whole_out, r)) for r, o in enumerate(outs)]
+    check(all(h[0] for h in layer),
+          f"vocab_head cp_attention: the ranks' rows off the whole layer, "
+          f"(error, max|ref|) a rank {[h[1:] for h in layer]}")
+    q_all, k_all, v_all = layers.project_qkv(attn, x, positions, cfg)
+    k, v = kv.split(kv.shape[-1] // 2, dim=-1)
+    heads = cfg.num_heads
+    cases, kernel_outs = [], []
+    for r, ((q, _), sh) in enumerate(zip(parts, ranks)):
+        off = sharding.seq_piece(s, sh)[0]
+        got = ops.attention(q, k, v, q_offset=off)
+        kernel_outs.append(got)
+        if r not in (0, m - 1):
+            continue
+        expect = ref.attention_ref(q, k, v, q_offset=off)
+        ok, kerr, kref = held(got, expect)
+        check(ok, f"vocab_head cp_attention rank {r}: flash_attention with "
+                  f"q_offset {off} off its plain version by {kerr} "
+                  f"(max|ref| {kref})")
+        visible = sum(off + i + 1 for i in range(q.shape[1]))
+        bound = bound_of(nbytes_of(q, k, v, got),
+                         4 * b * heads * visible * cfg.head_dim,
+                         MATMUL_OPS[cfg.compute_dtype])
+        mask = ref.visible_mask(q.shape[1], s, off, True, cfg.window, dev)
+        cases.append({
+            "rank": r, "q_offset": off, "shape": [list(q.shape),
+                                                  list(k.shape)],
+            "max_abs_err": kerr, "max_abs_ref": kref,
+            "ms": cold_ms(lambda: ops.attention(q, k, v, q_offset=off), 20),
+            "plain_ms": cold_ms(lambda: ref.attention_ref(
+                q, k, v, q_offset=off), 3),
+            "library_ms": cold_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True), 20),
+            "bound_ms": bound[0], "bound_by": bound[1]})
+    whole_kernel = ops.attention(q_all, k_all, v_all)
+    stitched = [held(o, rank_rows(whole_kernel, r))
+                for r, o in enumerate(kernel_outs)]
+    check(all(h[0] for h in stitched),
+          f"vocab_head cp_attention: the ranks' flash_attention off the "
+          f"whole kernel, (error, max|ref|) a rank "
+          f"{[h[1:] for h in stitched]}")
+    # the checks must see a wrong q_offset on the last rank: one 64-row
+    # query tile off, and 0 (the whole sequence's first position)
+    last = m - 1
+    off = sharding.seq_piece(s, ranks[last])[0]
+    q = parts[last][0]
+    expect = ref.attention_ref(q, k, v, q_offset=off)
+    wrong = {}
+    for bad in (off - min(64, off), 0):
+        got = ops.attention(q, k, v, q_offset=bad)
+        seen = {"plain": held(got, expect),
+                "whole_kernel": held(got, rank_rows(whole_kernel, last)),
+                "layer": held(torch.einsum("bshk,hkd->bsd", got,
+                                           attn.wo.to(dt)),
+                              rank_rows(whole_out, last))}
+        check(not any(h[0] for h in seen.values()),
+              f"vocab_head cp_attention: q_offset {bad} in place of {off} "
+              f"on rank {last} passes a check: {seen}")
+        wrong[str(bad)] = {name: h[1] for name, h in seen.items()}
+    emit({"phase": "vocab_head", "case": "cp_attention", "card": card,
+          "arch": VOCAB_HEAD["arch"], "model": m, "tokens": list(TP_TOKENS),
+          "dtype": cfg.compute_dtype, "tolerance": tol,
+          "limit": "tolerance x the rank's max|ref|",
+          "layer_rank_err_ref": [h[1:] for h in layer],
+          "kernel_stitched_rank_err_ref": [h[1:] for h in stitched],
+          "wrong_q_offset_rank_errs": {"rank": last, "q_offset": off,
+                                       "limits": {name: tol * h[2] for name,
+                                                  h in seen.items()},
+                                       **wrong},
+          "launches": launches, "ranks": cases,
+          "whole_kernel_ms": cold_ms(lambda: ops.attention(
+              q_all, k_all, v_all), 20)})
+    del attn, kv, parts, outs, whole_out, q_all, k_all, v_all, flush
+    if on_card:
+        torch.cuda.empty_cache()
+    emit({"phase": "vocab_head", "case": "timing", "card": card,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+    return launches, {"case": f"cp-rank{m - 1}", **cases[-1]}
+
 def kernel_entry(name, source, replaces, launches, results, full_launches,
                  grads, train_launches, mesh_launches, tp_launches,
-                 sp_launches, sp_rank0):
+                 sp_launches, sp_rank0, cp_launches, cp_rank):
     """The ``kernels`` line's entry: execute-serving's case for the times,
     the largest float32 and bf16 errors over all cases, the full-width bf16
     cases ``FULL_CASE[name]`` beside it, the launches of each full-width
     arch's run, the training cases (forward kernel and backward a call),
     the launches of one ``train_full`` step of each arch and of one mesh
-    step (``train_mesh``), of ``tp_bodies`` and of ``sp_decode``; for
-    ``flash_decode`` its partial mode's rank 0 numbers in ``sp_decode``
-    and its launches there."""
+    step (``train_mesh``), of ``tp_bodies``, of ``sp_decode`` and of
+    ``vocab_head``'s ``cp_attention`` body; for ``flash_decode`` its
+    partial mode's rank 0 numbers in ``sp_decode`` and its launches
+    there; for ``flash_attention`` its last rank's numbers with
+    ``q_offset`` in the ``cp_attention`` body."""
     mine = {k: r for k, r in results.items() if k[0] == name}
     main = next(r for (n, c, d), r in mine.items() if c == "serve")
     keys = ("case", "dtype", "shape", "ms", "call_ms", "plain_ms",
@@ -3078,11 +3430,14 @@ def kernel_entry(name, source, replaces, launches, results, full_launches,
                                 for arch, n in mesh_launches.items()},
         "launches_tp_bodies": tp_launches[name],
         "launches_sp_decode": sp_launches[name],
+        "launches_cp_attention": cp_launches[name],
     }
     if name == "flash_decode":      # the partial mode, in sp_decode
         entry["partial_mode"] = {
             **sp_rank0, "launches_sp_decode": sp_launches[
                 "flash_decode_partial"]}
+    if name == "flash_attention":   # q_offset, in the cp_attention body
+        entry["cp_attention"] = cp_rank
     return entry
 
 
@@ -3172,6 +3527,9 @@ def main():
     sp_launches, sp_rank0 = phase_sp_decode(
         torch, F, configs, ops, ref, layers, transformer, sharding, counters,
         flash_decode.flash_decode_partial)
+    t_vocab = time.perf_counter()
+    cp_launches, cp_rank = phase_vocab_head(torch, F, configs, ops, ref, lm,
+                                            layers, sharding, counters)
     t_end = time.perf_counter()
     emit({"phase": "timing", "total_s": t_end - t_start,
           "lm_phases_s": t_actor - t_lm, "actor_phases_s": t_train - t_actor,
@@ -3179,7 +3537,9 @@ def main():
           "train_phases_s": t_train_mesh - t_train,
           "train_mesh_phase_s": t_analysis - t_train_mesh,
           "analysis_phase_s": t_tp - t_analysis,
-          "tp_bodies_phase_s": t_sp - t_tp, "sp_decode_phase_s": t_end - t_sp})
+          "tp_bodies_phase_s": t_sp - t_tp,
+          "sp_decode_phase_s": t_vocab - t_sp,
+          "vocab_head_phase_s": t_end - t_vocab})
     main = scores[("main-path-base", "float32")]
     floor = scores[("launch-floor", "float32")]
     err = max([r["max_abs_err"] for (case, dt), r in scores.items()
@@ -3208,6 +3568,7 @@ def main():
         "launches_train_mesh": {arch: n["route_score"]
                                 for arch, n in mesh_train_launches.items()},
         "launches_tp_bodies": tp_launches["route_score"],
+        "launches_cp_attention": cp_launches["route_score"],
         "mesh_blocks": [{k: r[k] for k in (
             "case", "shape", "inf_rows", "bitwise", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by")}
@@ -3216,7 +3577,7 @@ def main():
         kernel_entry(name, f"{csrc}/{src}.cu", f"{pallas}/{src}.py:{line}",
                      exec_launches[name], lm_results, full_launches, grads,
                      train_launches, mesh_train_launches, tp_launches,
-                     sp_launches, sp_rank0)
+                     sp_launches, sp_rank0, cp_launches, cp_rank)
         for name, src, line in (("rmsnorm", "rmsnorm", 34),
                                 ("flash_attention", "flash_attention", 98),
                                 ("flash_decode", "flash_decode", 83),

@@ -37,14 +37,19 @@ is made by hand. The decode cache over ``model`` is this rank's pieces as
 Mamba's ``conv_x`` channels, the SSD state by heads where they divide),
 handed between the serving calls as ``DTensor``s over the ``model`` axis
 (``cache_dtensors``; the batch rows are the rank's, as the tokens are);
-decode attention is sequence-parallel over it (``softmax_combine``). ``constrain_spec`` keeps their resolution rule (the
+decode attention is sequence-parallel over it (``softmax_combine``).
+``constrain_spec`` keeps their resolution rule (the
 ``"batch"`` expansion, the ``"!"`` force, the divisibility fallback);
 the step places its batch rows with it. Over ``model`` (``ModelShard``)
 the residual stream is this rank's rows of the sequence where the
 sequence divides, and a block's tensor-parallel body runs on this rank's
 slices (``tp_slice``: its heads, ``ff`` or ``d_inner`` channels) between
 ``gather_seq`` and ``scatter_seq``, autograd Functions each of whose
-backward is the other's forward.
+backward is the other's forward. Where the vocab divides ``model`` the
+embedding, the head and the logits are this rank's piece of the vocab
+(``vocab_piece``; the serving calls return the logits as a ``DTensor``
+over ``model``, ``vocab_dtensor``), reduced across the ranks by
+``model_reductions``.
 """
 from __future__ import annotations
 
@@ -402,7 +407,10 @@ def tp_slice(name: str, cfg: ArchConfig, index: int, size: int):
     MLP: its piece of ``ff``; Mamba: its piece of the SSD heads, as
     channels of ``d_inner`` where the leaf is one), or ``None`` for a
     leaf used whole (and for every leaf where ``size`` is 1). The MoE
-    experts are not here: their ``model`` shard is their slice."""
+    experts are not here: their ``model`` shard is their slice; nor the
+    embedding and the head, whose ``model`` shard is the rank's vocab
+    rows (``vocab_piece``). A context-parallel call uses the attention's
+    slices whole (``cp_whole``)."""
     if size == 1:
         return None
     path = name.replace(".", "/")
@@ -422,6 +430,17 @@ def tp_slice(name: str, cfg: ArchConfig, index: int, size: int):
         if what == "inner":
             lo, hi = lo * cfg.ssm_head_dim, hi * cfg.ssm_head_dim
     return dim, lo, hi
+
+
+def cp_whole(name: str, cfg: ArchConfig) -> bool:
+    """Whether a context-parallel call (``cfg.cp_attention``, prefill or
+    train over the rank's rows: ``layers.context_parallel``) uses
+    parameter ``name`` whole where a head-split call takes its slice: the
+    attention's ``wq``/``wk``/``wv``/``wo``, which project every head on
+    the rows. Decode, and a sequence that does not divide ``model``, keep
+    the rank's heads (``tp_slice``)."""
+    return bool(cfg.cp_attention) and re.search(
+        r"attn/w[qkvo]$", name.replace(".", "/")) is not None
 
 
 # ------------------------------------------------------ the decode layout
@@ -448,20 +467,85 @@ def softmax_combine(m, l, acc, dtype, tp):
     ``ref.softmax_merge`` with the ranks reduced by a MAX all-reduce of
     ``m`` and one all-reduce of ``l w`` and ``acc w`` packed together.
     Every rank calls it, with a key or without. No autograd (decode)."""
-    group = tp.axis.group
+    reduce_max, reduce_sum, _ = model_reductions(tp)
+    return ref.softmax_merge(m, l, acc, dtype, reduce_max, reduce_sum)
 
-    def reduce_max(t):
-        t = t.clone()
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-        return t
+
+def _reduced(t, group, op):
+    """``t`` (detached) reduced by ``op`` over ``group``, in a copy."""
+    t = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def model_reductions(tp):
+    """The reductions over ``model`` that ``ref.softmax_merge`` and the
+    vocab-parallel loss and argmax (``lm.vocab_nll``, ``lm.vocab_argmax``)
+    take: ``reduce_max(t)``, a MAX all-reduce of ``t`` detached;
+    ``reduce_sum(a, b)``, one SUM all-reduce of ``a`` and ``b`` packed
+    together, autograd-aware where autograd records (its backward sums
+    the ranks' gradients, as ``all_reduce``'s); ``reduce_min(t)``, a MIN
+    all-reduce."""
+    group = tp.axis.group
 
     def reduce_sum(a, b):
         packed = torch.cat([a.flatten(), b.flatten()])
-        dist.all_reduce(packed, group=group)
+        if torch.is_grad_enabled() and packed.requires_grad:
+            packed = _AllReduceSum.apply(packed, group)
+        else:                       # in place: the packed copy is ours
+            dist.all_reduce(packed, group=group)
         x, y = packed.split([a.numel(), b.numel()])
         return x.view(a.shape), y.view(b.shape)
 
-    return ref.softmax_merge(m, l, acc, dtype, reduce_max, reduce_sum)
+    return (lambda t: _reduced(t, group, dist.ReduceOp.MAX), reduce_sum,
+            lambda t: _reduced(t, group, dist.ReduceOp.MIN))
+
+
+# ------------------------------------------------------ the vocab over model
+def vocab_cut(cfg: ArchConfig, size: int) -> bool:
+    """Whether the embedding and the head are cut by their vocab over a
+    ``model`` axis of ``size``: where the vocab divides it. The one rule
+    of ``param_specs`` (the specs' ``model`` entry) and ``vocab_piece``
+    (the rows the lookup and the loss take)."""
+    return cfg.vocab % size == 0
+
+
+def vocab_piece(cfg: ArchConfig, tp):
+    """``(start, stop)``: the vocab rows of the embedding and the head that
+    this ``model`` rank holds and uses (their spec's ``model`` shard,
+    ``param_specs``), or None where every rank holds the whole vocab
+    (``tp`` None, or a vocab that does not divide ``model``:
+    ``vocab_cut``)."""
+    if tp is None or not vocab_cut(cfg, tp.size):
+        return None
+    n = cfg.vocab // tp.size
+    return tp.index * n, (tp.index + 1) * n
+
+
+def vocab_dtensor(t, cfg: ArchConfig, tp):
+    """This rank's logits ``t`` (..., V/m) as a ``DTensor`` over the
+    ``model`` axis of ``tp.mesh``, ``Shard`` on the vocab (the batch the
+    rank's rows, as the tokens); ``.full_tensor()`` gathers the whole
+    vocab. No communication."""
+    return _over_model(t, t.dim() - 1, cfg.vocab, tp)
+
+
+def _over_model(t, dim: int, length: int, tp):
+    """``t`` as a ``DTensor`` over ``model``: ``Shard(dim)`` of a whole
+    ``length`` long on that dim (``dim`` None: ``Replicate``), the whole
+    contiguous."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    shape = list(t.shape)
+    if dim is not None:
+        shape[dim] = length
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(t, tp.mesh.groups["model"],
+                              [Replicate() if dim is None else Shard(dim)],
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
 
 
 def _mamba_ranges(cfg: ArchConfig, tp):
@@ -558,22 +642,11 @@ def cache_dtensors(pieces, whole, cfg: ArchConfig, tp):
     axis of ``tp.mesh``: ``Shard`` on the dim ``cache_specs`` puts on
     ``model``, the rest ``Replicate``. The batch is the rank's rows. No
     communication."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    sub = tp.mesh.groups["model"]
     dims = _model_dims(whole, cfg, tp)
 
     def wrap(t, w, d):
-        shape = list(t.shape)
-        if d is not None:
-            shape[d] = w.shape[d]
-        stride = [1] * len(shape)       # the whole's, contiguous
-        for i in range(len(shape) - 2, -1, -1):
-            stride[i] = stride[i + 1] * shape[i + 1]
-        return DTensor.from_local(t, sub, [Replicate() if d is None
-                                           else Shard(t.dim() + d)],
-                                  run_check=False, shape=torch.Size(shape),
-                                  stride=tuple(stride))
+        return _over_model(t, None if d is None else t.dim() + d,
+                           None if d is None else w.shape[d], tp)
 
     def walk(tree, whole, dims):
         return {k: walk(v, whole[k], dims[k]) if isinstance(v, dict)
@@ -648,7 +721,7 @@ def param_specs(params, cfg: ArchConfig, mesh, fsdp: bool = True) -> dict:
     model_ok_heads = _div(cfg.num_heads, mesh) if cfg.num_heads else False
     model_ok_kv = _div(cfg.num_kv_heads, mesh) if cfg.num_kv_heads else False
     dax = "data" if fsdp else None
-    vocab_ok = _div(cfg.vocab, mesh)
+    vocab_ok = vocab_cut(cfg, mesh.shape["model"])
     ep = cfg.moe_parallel == "ep" and cfg.num_experts > 0 and _div(
         cfg.num_experts, mesh)
 

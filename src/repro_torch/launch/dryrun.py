@@ -22,7 +22,12 @@ one process on the CPU:
   as ``cache_specs`` places it (``lm.init_cache(mesh=)``: the KV
   sequence over ``model``, the Mamba state by heads), and decode takes
   it as it stands: its blocks tensor-parallel, its attention
-  sequence-parallel over the rank's keys, no cache leaf gathered;
+  sequence-parallel over the rank's keys, no cache leaf gathered. The
+  embedding, the head and the logits are the rank's piece of the vocab
+  where it divides ``model`` (the loss and the greedy ids crossing the
+  pieces by all-reduces, counted as any other collective);
+  ``run_cell(..., overrides={"cp_attention": True})`` traces the
+  context-parallel attention;
 * ``kernels.ops`` sends the fake CPU tensors to the plain versions; the
   analysis (``launch.hlo_analysis``) counts them at the ``ops``
   boundary, so the counts do not depend on that.

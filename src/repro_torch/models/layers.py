@@ -114,8 +114,32 @@ def attention_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
     attention of all the heads over its piece
     (``ops.decode_attention_partial``) and ``sharding.softmax_combine``
     finishes it; ``wo`` takes the rank's heads of the result.
+
+    Under ``cfg.cp_attention`` a prefill or train call over ``model``
+    whose ``x`` is this rank's rows of the sequence
+    (``context_parallel``) is the reference's context-parallel attention,
+    on the leaves whole (``sharding.cp_whole``): q, K and V of every head
+    on the rows (``cp_project``), K and V all-gathered once
+    (``sharding.gather_seq``, whose backward reduce-scatters), the rank's
+    queries over them at their first position (``cp_attend``); ``out`` is
+    the rows' complete output, and ``collect_kv`` returns the rank's
+    piece of the K/V sequence, the decode layout. Decode, and a sequence
+    that does not divide ``model`` (where every rank computing every
+    query would count the gradient's factor of the model size twice),
+    split the heads as above, on the rank's slices.
     """
     cd = dtype_of(cfg.compute_dtype)
+    if context_parallel(cfg, shard, cache):
+        q, kv = cp_project(params, x, positions, cfg, shard)
+        out, k, v = cp_attend(params, q, sharding.gather_seq(kv, shard), cfg,
+                              shard)
+        new_cache = None
+        if collect_kv:
+            keep = min(k.shape[1], cfg.window) if cfg.window > 0 else k.shape[1]
+            offset, n = sharding.seq_piece(keep, shard)
+            new_cache = {"k": k[:, -keep:].narrow(1, offset, n).clone(),
+                         "v": v[:, -keep:].narrow(1, offset, n).clone()}
+        return out, new_cache
     q, k, v = project_qkv(params, x, positions, cfg)
 
     if cache is None:
@@ -134,6 +158,38 @@ def attention_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
             cfg, shard)
         new_cache = cache
     return torch.einsum("bshk,hkd->bsd", out, params.wo.to(cd)), new_cache
+
+
+def context_parallel(cfg: ArchConfig, shard, cache=None) -> bool:
+    """Whether a prefill or train call (no ``cache``) over ``model``
+    takes the context-parallel attention: ``cfg.cp_attention``, and the
+    residual stream this rank's rows (the sequence divides ``model``).
+    Decode, and a sequence that does not divide, split the heads."""
+    return (cfg.cp_attention and cache is None and shard is not None
+            and shard.rows)
+
+
+def cp_project(params, x, positions, cfg: ArchConfig, shard):
+    """The context-parallel attention's first half, on this rank's rows
+    ``x`` (B, S / m, d) of a sequence at ``positions`` (S,): q of every
+    head at the rows' positions, and K and V side by side on the last
+    dim, (B, S / m, KV, 2 hd), for the one all-gather of both."""
+    offset, n = sharding.seq_piece(positions.shape[0], shard)
+    q, k, v = project_qkv(params, x, positions[offset:offset + n], cfg)
+    return q, torch.cat([k, v], dim=-1)
+
+
+def cp_attend(params, q, kv, cfg: ArchConfig, shard):
+    """Its second half: the rank's queries over the whole K/V (``kv``
+    gathered, (B, S, KV, 2 hd)), the kernel told their first position
+    (``q_offset``), and ``wo``. Returns the rank's rows of the layer's
+    output, (B, S / m, d), complete (every head): no sum over ``model``
+    follows; and the K and V."""
+    cd = dtype_of(cfg.compute_dtype)
+    k, v = kv.split(kv.shape[-1] // 2, dim=-1)
+    out = ops.attention(q, k, v, causal=True, window=cfg.window,
+                        q_offset=sharding.seq_piece(kv.shape[1], shard)[0])
+    return torch.einsum("bshk,hkd->bsd", out, params.wo.to(cd)), k, v
 
 
 def decode_attend(cache, q, k, v, pos: int, cfg: ArchConfig, shard=None,

@@ -61,28 +61,58 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> LanguageModel:
 def embed(params, tokens, cfg: ArchConfig, patch_embeds=None, tp=None):
     """Token embeddings by ``F.embedding``: the reference's gather, and
     on the CPU its backward sums each row's gradients in a fixed order
-    (an indexing backward's accumulation there is not). Over a mesh the
-    table is gathered for the lookup (``transformer.in_use``); with
-    ``tp`` (a ``sharding.ModelShard``) the embeddings are this rank's
-    rows of the sequence, the residual stream's layout."""
+    (an indexing backward's accumulation there is not). With ``tp`` (a
+    ``sharding.ModelShard``) the embeddings are this rank's rows of the
+    sequence, the residual stream's layout (whole where the sequence does
+    not divide ``model``, as decode's one position). Over a mesh the
+    table is taken for the lookup (``transformer.in_use``): where the
+    vocab divides ``model`` it is this rank's vocab rows
+    (``sharding.vocab_piece``), each rank looks up the whole sequence in
+    them (``vocab_lookup``) and the partials are summed over ``model``
+    into the rows (``sharding.scatter_seq``: a reduce-scatter, or an
+    all-reduce where the rows stay whole). A text embedding is one value
+    and zeros an element, so the sum is the whole table's lookup bit for
+    bit; audio's sum over the codebooks is taken a rank at a time, so its
+    association changes (float32 rounding)."""
     cd = dtype_of(cfg.compute_dtype)
-    tokens = sharding.seq_rows(tokens, tp)
+    piece = sharding.vocab_piece(cfg, tp)
+    if piece is None:
+        tokens = sharding.seq_rows(tokens, tp)
+        lookup = F.embedding
+    else:
+        def lookup(ids, table):
+            return vocab_lookup(table, ids, piece[0])
     if patch_embeds is not None:
         patch_embeds = sharding.seq_rows(patch_embeds, tp)
     with transformer.in_use(params, ("embed",)):
         if cfg.modality == "audio":
             # tokens: (B, S, n_codebooks) — sum the per-codebook embeddings
-            x = sum(F.embedding(tokens[..., c], params.embed[c])
+            x = sum(lookup(tokens[..., c], params.embed[c])
                     for c in range(cfg.num_codebooks)).to(cd)
         else:
-            x = F.embedding(tokens, params.embed).to(cd)
+            x = lookup(tokens, params.embed).to(cd)
+    if piece is not None:
+        x = sharding.scatter_seq(x, tp)
     if cfg.modality == "image" and patch_embeds is not None:
         x = x + patch_embeds.to(cd)
     return x
 
 
+def vocab_lookup(table, ids, start: int):
+    """The rows of ``table`` (the vocab rows from ``start`` on) for
+    ``ids``: an id outside them reads row 0 and its row is zeroed, so the
+    ranks' lookups sum to the whole table's."""
+    local = ids.long() - start
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(torch.where(mine, local, 0), table)
+    return rows.masked_fill(~mine[..., None], 0)
+
+
 def unembed(params, x, cfg: ArchConfig):
-    """Returns logits; audio: (B, S, C, V), else (B, S, V)."""
+    """Returns logits; audio: (B, S, C, V), else (B, S, V). Over a mesh
+    whose ``model`` axis the vocab divides, the head (or the tied
+    embedding) is this rank's vocab rows and the logits theirs: (..., V /
+    m), a plain product, as the reference's head."""
     cd = dtype_of(cfg.compute_dtype)
     tied = cfg.modality != "audio" and cfg.tie_embeddings
     with transformer.in_use(params, ("embed",) if tied else ("head",)):
@@ -90,6 +120,52 @@ def unembed(params, x, cfg: ArchConfig):
             return torch.einsum("bsd,cdv->bscv", x, params.head.to(cd))
         w = params.embed.T if tied else params.head
         return x @ w.to(cd)
+
+
+def vocab_nll(logits, labels, start, reduce_max, reduce_sum):
+    """Each position's cross-entropy, ``logsumexp - gold`` in float32,
+    from logits over the vocab rows from ``start`` (``logits`` (..., n),
+    ``labels`` (...)), the pieces of the vocab reduced by the callers'
+    reductions: ``m = reduce_max(the local max)`` (detached: the result
+    does not depend on it), ``(s, g) = reduce_sum(sum exp(logits - m), the
+    gold logit where the label falls in the piece, else 0)``, ``m + log s
+    - g``. ``sharding.model_reductions`` reduces across the ranks of
+    ``model`` (one MAX and one packed SUM all-reduce); a stack of pieces
+    on a leading dim (``start`` a tensor of their starts, broadcast) is
+    reduced by a max and a sum over it. No (..., V) one-hot."""
+    l32 = logits.float()
+    m = reduce_max(l32.detach().amax(dim=-1))
+    local = labels.long() - start
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(l32, -1, torch.where(mine, local, 0)[..., None])
+    s, g = reduce_sum(torch.exp(l32 - m[..., None]).sum(dim=-1),
+                      torch.where(mine, gold[..., 0], 0.0))
+    return m + torch.log(s) - g
+
+
+def vocab_argmax(logits, start, vocab: int, reduce_max, reduce_min):
+    """Greedy ids over the whole vocab from logits over the vocab rows
+    from ``start``: each piece's max and first index at it, ``m =
+    reduce_max(max)``, then ``reduce_min`` of the global index among the
+    pieces whose max is ``m`` (``vocab`` elsewhere): the lowest index at
+    the largest logit, as ``torch.argmax`` over the whole vocab gives
+    (the float32 max of bf16 logits is exact)."""
+    top = logits.amax(dim=-1).float()
+    first = logits.argmax(dim=-1) + start
+    return reduce_min(torch.where(top == reduce_max(top), first, vocab))
+
+
+def _greedy(logits, cfg: ArchConfig, tp):
+    """(next ids, logits) of a serving call: over a ``model`` axis whose
+    vocab divides it, the ids from the ranks' pieces (``vocab_argmax``)
+    and the logits a ``DTensor`` over ``model`` holding this rank's
+    (``sharding.vocab_dtensor``); else ``torch.argmax`` and the logits."""
+    piece = sharding.vocab_piece(cfg, tp)
+    if piece is None:
+        return torch.argmax(logits, dim=-1), logits
+    reduce_max, _, reduce_min = sharding.model_reductions(tp)
+    ids = vocab_argmax(logits, piece[0], cfg.vocab, reduce_max, reduce_min)
+    return ids, sharding.vocab_dtensor(logits, cfg, tp)
 
 
 def teacher_forced(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
@@ -122,14 +198,26 @@ def loss_fn(params, batch, cfg: ArchConfig, *, mesh=None, aux_weight=0.01):
     contracts with a one-hot (which keeps its vocab axis sharded): exactly
     one term of that sum is nonzero, so the value is the same, without a
     (B, S, V) float32 one-hot. Over a ``mesh`` the batch is this rank's
-    rows and the loss their mean."""
+    rows and the loss their mean; where the vocab divides ``model`` each
+    rank holds its piece of the logits and the logsumexp and the gold
+    term cross the ranks (``vocab_nll``: a MAX and one packed SUM
+    all-reduce, whose backward sums the ranks' equal gradients, so the
+    rank's logits, its head rows and the stream carry the factor of the
+    model size that ``models/train.py`` divides out)."""
     logits, aux = teacher_forced(params, batch["tokens"], cfg,
                                  patch_embeds=batch.get("patch_embeds"),
                                  mesh=mesh)
-    logits32 = logits.float()
-    lse = torch.logsumexp(logits32, dim=-1)
-    gold = torch.gather(logits32, -1, batch["labels"].long()[..., None])
-    nll = (lse - gold[..., 0]).mean()
+    tp = sharding.model_shard(mesh, batch["tokens"].shape[1])
+    piece = sharding.vocab_piece(cfg, tp)
+    if piece is None:
+        logits32 = logits.float()
+        lse = torch.logsumexp(logits32, dim=-1)
+        gold = torch.gather(logits32, -1, batch["labels"].long()[..., None])
+        nll = (lse - gold[..., 0]).mean()
+    else:
+        reduce_max, reduce_sum, _ = sharding.model_reductions(tp)
+        nll = vocab_nll(logits, batch["labels"], piece[0], reduce_max,
+                        reduce_sum).mean()
     aux = torch.as_tensor(aux, dtype=torch.float32, device=nll.device)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
@@ -147,7 +235,9 @@ def prefill(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
     rows of the sequence). Over a ``model`` axis above 1 the caches come
     back in the decode layout, ``DTensor``s over ``model`` holding this
     rank's pieces (``sharding.cache_dtensors``: the K/V sequence of the
-    prompt, the Mamba state's heads and channels)."""
+    prompt, the Mamba state's heads and channels), and where the vocab
+    divides ``model`` so do the logits: a ``DTensor`` holding this rank's
+    piece of the vocab, the ids the whole vocab's (``vocab_argmax``)."""
     tp = sharding.model_shard(mesh, tokens.shape[1])
     x = embed(params, tokens, cfg, patch_embeds, tp)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -155,11 +245,11 @@ def prefill(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
                                            collect_cache=True, mesh=mesh)
     x = sharding.gather_seq(x, tp)
     x = layers.rmsnorm_apply(params.final_norm, x[:, -1:], cfg)
-    logits = unembed(params, x, cfg)
+    ids, logits = _greedy(unembed(params, x, cfg), cfg, tp)
     if tp is not None:
         caches = sharding.cache_dtensors(caches, init_cache(
             cfg, tokens.shape[0], tokens.shape[1], device="meta"), cfg, tp)
-    return torch.argmax(logits, dim=-1), logits, caches
+    return ids, logits, caches
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None,
@@ -262,19 +352,21 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig, *,
     ``mesh``: as in ``prefill``; over a ``model`` axis above 1 ``cache``
     is in the decode layout (``prefill(mesh=)``, ``init_cache(mesh=)``,
     or placed by ``sharding.cache_specs``), each block runs on its
-    tensor-parallel slices and no cache leaf is gathered.
+    tensor-parallel slices and no cache leaf is gathered; the logits as
+    ``prefill``'s.
     """
     pieces, cache_len = cache, None
-    if sharding.model_shard(mesh, 1) is not None:
+    tp = sharding.model_shard(mesh, 1)
+    if tp is not None:
         pieces, cache_len = sharding.cache_pieces(cache)
-    x = embed(params, tokens, cfg, patch_embeds)
+    x = embed(params, tokens, cfg, patch_embeds, tp)
     positions = torch.full((1,), pos, dtype=torch.long, device=tokens.device)
     x, _, _ = transformer.stack_apply(params.stack, x, positions, cfg,
                                       caches=pieces, pos=pos, mesh=mesh,
                                       cache_len=cache_len)
     x = layers.rmsnorm_apply(params.final_norm, x, cfg)
-    logits = unembed(params, x, cfg)
-    return torch.argmax(logits, dim=-1), logits, cache
+    ids, logits = _greedy(unembed(params, x, cfg), cfg, tp)
+    return ids, logits, cache
 
 
 def param_count(params) -> int:

@@ -35,12 +35,22 @@ process group of ``mesh.size`` ranks, this rank holding
   under ``transformer.on_use``): a leaf whose stored ``model`` shard is
   its slice is all-gathered over the batch axes only; another is
   gathered whole and cut to the slice (``wq`` where the heads do not
-  divide ``model`` is stored whole over it). The embedding and the head
-  are gathered whole at each use, and the head and the loss run on the
-  whole sequence (``sharding.gather_seq``), so every model rank computes
-  the same loss. A block recomputed under remat gathers again; under
-  ``remat="none"`` a block that gathers runs as ``"full"``, so autograd
-  keeps no gathered leaf. The kernels run at the rank's local shapes;
+  divide ``model`` is stored whole over it). Under ``cp_attention`` a
+  context-parallel call (prefill or train over the rank's rows) gathers
+  the attention's leaves whole instead (``sharding.cp_whole``); decode
+  and a head-split call keep the rank's heads. Where
+  the vocab divides ``model`` the embedding and the head keep their
+  ``model`` shard, this rank's vocab rows (the tied embedding one shard
+  for both uses), gathered over the batch axes only: each rank looks the
+  whole sequence up in its rows and the partials are summed into the
+  rows (``lm.embed``), the head gives this rank's piece of the logits on
+  the whole sequence (``sharding.gather_seq``), and the loss crosses the
+  pieces (``lm.vocab_nll``: a MAX and one packed SUM all-reduce); where
+  it does not divide they are gathered whole at each use. Either way
+  every model rank computes the same loss. A block recomputed under
+  remat gathers again; under ``remat="none"`` a block that gathers runs
+  as ``"full"``, so autograd keeps no gathered leaf. The kernels run at
+  the rank's local shapes;
 * each gathered use's gradient is reduce-scattered, summed, back to the
   shard, so the microbatches accumulate shard-sized gradients (the
   reference's carry is sharded like the parameters);
@@ -51,14 +61,23 @@ process group of ``mesh.size`` ranks, this rank holding
   axes, in one flat buffer; every gradient is divided by the world.
   Every leaf's gradient summed once over ``model`` carries a factor of
   the model size, since the loss is computed on every model rank: a
-  leaf used whole (the head, the final norm) sums that many equal
-  terms; a norm on the rows, the embedding's rows and a tensor-parallel
-  slice get it from the reduce-scatter of the head's gathered input,
-  which sums the ranks' equal gradients into each rank's rows (where the
-  rows stay whole, a slice gets it from the all-reduce of its partial's
-  gradient, and the ranks' terms of a norm sum to it); a slice cut from
-  a leaf stored whole adds its slice among zeros. So the division leaves
-  the mean over the batch axes;
+  leaf used whole (the final norm; the head where the vocab does not
+  divide) sums that many equal terms. Where the vocab is cut, the
+  loss's SUM all-reduce sums the model size's equal upstream gradients
+  back to each rank, so the rank's piece of the logits carries the
+  factor, and with it its head rows and its vocab piece's term of the
+  gradient of the head's input. The reduce-scatter of that gathered
+  input sums the ranks' terms (their vocab pieces', or equal whole
+  ones) into each rank's rows: a norm on the rows, the embedding's rows
+  and a tensor-parallel slice get the factor from there (where the rows
+  stay whole, a slice gets it from the all-reduce of its partial's
+  gradient, and the ranks' terms of a norm sum to it); the cut
+  embedding's rows take the rows' gradient back to the whole sequence
+  by the partials' all-gather (all-reduce where the rows stay whole); a
+  slice cut from a leaf stored whole adds its slice among zeros; the
+  context-parallel attention's whole leaves sum the ranks' rows' terms,
+  each with the factor. So the division leaves the mean over the batch
+  axes;
 * the clip norm counts every element once: a shard replicated over an
   axis is counted on that axis's rank 0 only, and the sum crosses all
   ranks; AdamW runs on the local shards and updates the moments in
@@ -171,6 +190,7 @@ def make_train_step(cfg: ArchConfig, mesh=None, clip_norm: float = 1.0,
 
 # ------------------------------------------------------------------ the mesh
 _EXPERT = re.compile(r"(^|\.)moe\.w[gud]$")
+_VOCAB = re.compile(r"^(embed|head)$")
 
 
 class _Layout(NamedTuple):
@@ -182,17 +202,23 @@ class _Layout(NamedTuple):
     reduce: tuple   # axes (size > 1) the use copy and the shard both
                     # replicate: the gradient's all-reduce
     counted: bool   # whether this rank counts its shard in the clip norm
+    whole: tuple | None     # the axes gathered where a context-parallel
+                            # call uses the leaf whole, uncut
+                            # (``sharding.cp_whole``), else None
 
 
 def _layouts(params, cfg: ArchConfig, mesh) -> dict:
     """Each parameter's ``_Layout`` on the bound ``mesh``: the train step,
     prefill and decode use the slice each block's tensor-parallel body
-    computes on (a leaf outside the bodies, as the embedding and the head,
-    whole; the MoE experts their ``model`` shard): a leaf whose stored
-    ``model`` shard is that slice keeps it and is gathered over the batch
-    axes only; another (stored whole over ``model``, as ``wq`` where the
-    heads do not divide, or cut elsewhere) is gathered whole and cut to
-    the slice.
+    computes on (a leaf outside the bodies, as the final norm, whole; the
+    MoE experts, and the embedding and the head, their ``model`` shard,
+    where the spec cuts one: the expert shard, the rank's vocab rows): a
+    leaf whose stored ``model`` shard is that slice keeps it and is
+    gathered over the batch axes only; another (stored whole over
+    ``model``, as ``wq`` where the heads do not divide, or cut elsewhere)
+    is gathered whole and cut to the slice. Under ``cp_attention`` the
+    attention's leaves also name the axes a context-parallel call gathers
+    them whole over (``whole``: every sharded axis, ``model`` included).
     A gradient sums over every axis the use copy is replicated on: over
     the gathered axes by the reduce-scatters of the gather's backward
     (the cut's backward pads the slice with zeros), over ``reduce`` by an
@@ -204,7 +230,7 @@ def _layouts(params, cfg: ArchConfig, mesh) -> dict:
     out = {}
     for name, spec in sharding.param_specs(params, cfg, mesh).items():
         store = sharding.placements(spec, mesh)
-        keep_model = _EXPERT.search(name) is not None
+        keep_model = _EXPERT.search(name) or _VOCAB.search(name)
         sharded, reduce, model_ax = [], [], None
         for axis, s in zip(mesh.axis_names, store):
             if mesh.shape[axis] == 1 or (keep_model and axis == "model"
@@ -222,8 +248,10 @@ def _layouts(params, cfg: ArchConfig, mesh) -> dict:
                                          s.dim, shapes[name][s.dim]))
             if axis == "model":
                 model_ax = sharded[-1]
-        gather, cut = sharded, ()
+        gather, cut, whole = sharded, (), None
         piece = sharding.tp_slice(name, cfg, index, m)
+        if piece is not None and sharding.cp_whole(name, cfg):
+            whole = tuple(sharded)
         if piece is not None:
             if model_ax is not None and (model_ax.dim,) + sharding.heads_of(
                     model_ax.length, index, m) == piece:
@@ -234,7 +262,7 @@ def _layouts(params, cfg: ArchConfig, mesh) -> dict:
                       for a, s in zip(mesh.axis_names, store)
                       if s.is_replicate())
         out[name] = _Layout(store, tuple(gather), cut, tuple(reduce),
-                            counted)
+                            counted, whole)
     return out
 
 
@@ -285,22 +313,25 @@ def _sharded(params, shards: dict, layouts: dict):
     nothing is gathered or cut (every shard axis of size 1) no hook is
     set, and the layers run as they do without a mesh."""
     held = {id(t): layouts[k] for k, t in shards.items()
-            if layouts[k].gather or layouts[k].cut}
+            if layouts[k].gather or layouts[k].cut or layouts[k].whole}
 
-    def use_copy(t):
+    def use_copy(t, cp):
         lay = held[id(t)]
-        u = _GatherOnUse.apply(t, lay.gather) if lay.gather else t
-        if lay.cut:
-            dim, lo, hi = lay.cut
+        gather, cut = ((lay.whole, ()) if cp and lay.whole is not None
+                       else (lay.gather, lay.cut))
+        u = _GatherOnUse.apply(t, gather) if gather else t
+        if cut:
+            dim, lo, hi = cut
             u = u.narrow(dim, lo, hi - lo)
         return u
 
     @contextlib.contextmanager
-    def use(module, names=None):
+    def use(module, names=None, cp=False):
         """``module``'s leaves as the layers use them for the block:
         gathered (``_GatherOnUse``) and cut to the tensor-parallel
-        slice."""
-        leaves = {k: use_copy(t) for k, t in module.named_parameters()
+        slice; for a context-parallel call (``cp``) the attention's
+        whole."""
+        leaves = {k: use_copy(t, cp) for k, t in module.named_parameters()
                   if id(t) in held and (names is None or k in names)}
         with _swapped(module, leaves):
             yield
@@ -361,8 +392,9 @@ def gathered(params, layouts: dict, mesh):
     and ``lm.decode_step`` with ``mesh=``): it holds this rank's shards,
     and each block gathers its leaves as it runs, cut to its
     tensor-parallel slices (the MoE experts over the batch axes only), and
-    drops them after; the embedding and the head likewise, whole, where
-    they are used. Collective."""
+    drops them after; the embedding and the head likewise where they are
+    used: this rank's vocab rows over the batch axes only where the vocab
+    divides ``model``, else whole. Collective."""
     shards = {k: local_shard(p) for k, p in params.named_parameters()}
     with _sharded(params, shards, layouts):
         yield params

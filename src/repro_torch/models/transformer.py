@@ -30,7 +30,11 @@ the reference's decode layout (``sharding.cache_specs``): each K/V leaf
 this rank's ``torch.chunk`` piece of the sequence, each Mamba state its
 heads and channels. Prefill hands it off so, a layer at a time (the
 layer's K/V heads gathered, this rank's piece kept); decode attention is
-sequence-parallel over it (``layers.attention_apply``).
+sequence-parallel over it (``layers.attention_apply``). Under
+``cfg.cp_attention`` the train step's and prefill's attention is
+context-parallel over the rows instead: it takes the normalised rows,
+gathers K and V once and adds the rows' complete output, no partial to
+sum (``layers.context_parallel``).
 
 Over a mesh the model holds this rank's stored shards, and ``on_use``
 names the hook that hands a module's leaves over as the layers use them
@@ -81,13 +85,16 @@ def dense_block_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
     """Returns (x, new_cache, aux). With ``tp`` (a ``sharding.ModelShard``)
     ``x`` is this rank's rows and the leaves its slices, and the K/V cache
     this rank's piece of the sequence (``cache_len`` slots in all at
-    decode)."""
+    decode). Under ``cfg.cp_attention`` the attention takes the rows
+    themselves and returns their complete output and the cache piece
+    (``layers.context_parallel``)."""
+    cp = layers.context_parallel(cfg, tp, cache)
+    normed = layers.rmsnorm_apply(params.ln1, x, cfg)
     h, new_cache = layers.attention_apply(
-        params.attn, sharding.gather_seq(
-            layers.rmsnorm_apply(params.ln1, x, cfg), tp), positions, cfg,
-        cache=cache, pos=pos, collect_kv=collect_cache, shard=tp,
-        cache_len=cache_len)
-    if tp is not None and collect_cache and cache is None:
+        params.attn, normed if cp else sharding.gather_seq(normed, tp),
+        positions, cfg, cache=cache, pos=pos, collect_kv=collect_cache,
+        shard=tp, cache_len=cache_len)
+    if tp is not None and collect_cache and cache is None and not cp:
         # the layer's kv heads gathered, then this rank's piece of the
         # sequence kept (a copy: the whole is dropped with the layer)
         kv = [sharding.kv_heads_of(cfg, r, tp.size) for r in range(tp.size)]
@@ -95,7 +102,7 @@ def dense_block_apply(params, x, positions, cfg: ArchConfig, *, cache=None,
         new_cache = {k: sharding.gather_ranges(t, tp, 2, kv, cfg.num_kv_heads)
                      .narrow(1, offset, n).clone()
                      for k, t in new_cache.items()}
-    x = x + sharding.scatter_seq(h, tp)
+    x = x + (h if cp else sharding.scatter_seq(h, tp))
     normed = sharding.gather_seq(layers.rmsnorm_apply(params.ln2, x, cfg), tp)
     if cfg.is_moe:
         f, aux = moe.moe_apply(params.moe, normed, cfg, mesh=mesh)
@@ -145,10 +152,15 @@ def _remat(apply, cfg: ArchConfig, blk, *args, **kwargs):
     """``apply(blk, *args, **kwargs)`` under the config's remat policy when
     autograd records, else as it stands, with ``blk``'s leaves handed
     over by the gather-on-use hook set now (``on_use``; a recompute uses
-    the same hook): cut to the body's slices. Where one is set,
-    ``"none"`` runs as ``"full"``. The blocks draw no random numbers, so
-    the RNG state is not saved for the recompute."""
+    the same hook): cut to the body's slices, or for a context-parallel
+    call (``layers.context_parallel`` of the block's ``tp`` and
+    ``cache``) the attention's leaves whole. Where one is set, ``"none"``
+    runs as ``"full"``. The blocks draw no random numbers, so the RNG
+    state is not saved for the recompute."""
     use = _on_use
+    if use is not None and layers.context_parallel(
+            cfg, kwargs.get("tp"), kwargs.get("cache")):
+        use = functools.partial(use, cp=True)
     remat = "full" if cfg.remat == "none" and use is not None else cfg.remat
     if remat == "none" or not torch.is_grad_enabled():
         return _block(apply, use, blk, *args, **kwargs)
@@ -176,11 +188,13 @@ _on_use = None      # the hook ``on_use`` names for its block, else None
 
 @contextlib.contextmanager
 def on_use(hook):
-    """For the block, ``hook(module, names=None)`` is the context in which
-    ``module``'s leaves (those of ``names``, or all) are the copies the
-    layers compute on: the tensor-parallel body's slices (set only where
-    a leaf is gathered or cut). The blocks take the hook when they run,
-    so a recompute in the backward gathers through the same one."""
+    """For the block, ``hook(module, names=None, cp=False)`` is the
+    context in which ``module``'s leaves (those of ``names``, or all) are
+    the copies the layers compute on: the tensor-parallel body's slices,
+    or with ``cp`` (a context-parallel call) the attention's leaves whole
+    (set only where a leaf is gathered or cut). The blocks take the hook
+    when they run, so a recompute in the backward gathers through the
+    same one."""
     global _on_use
     if _on_use is not None:
         raise RuntimeError("a gather-on-use hook is already set")

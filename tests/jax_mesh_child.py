@@ -98,14 +98,16 @@ def task_moe(inp, out_path):
 
 def task_train(inp, out_path):
     """The reference's jitted ``make_train_step(cfg, mesh)`` for
-    ``steps`` steps of each case (JSON: [[arch, mesh shape], ...]), from
-    the parameters in the input (``<arch>/...``) and its own pipeline's
-    batches: losses, grad norms, the final parameters."""
+    ``steps`` steps of each case (JSON: [[arch, mesh shape, steps, batch,
+    seq[, config overrides, tag]], ...]), from the parameters in the
+    input (``<arch>/...``) and its own pipeline's batches: losses, grad
+    norms, the final parameters, under ``tag`` (else ``arch/DxM``)."""
     res = {}
     meta = json.loads(str(inp["cases"]))
     flat = {k: v for k, v in inp.items() if k != "cases"}
-    for arch, shape, steps, batch, seq in meta:
-        cfg = reduced(get_arch(arch))
+    for arch, shape, steps, batch, seq, *rest in meta:
+        over, tag = rest if rest else ({}, f"{arch}/{shape[0]}x{shape[1]}")
+        cfg = dataclasses.replace(reduced(get_arch(arch)), **over)
         mesh = mesh_of(tuple(shape))
         params = jax.tree.map(jnp.asarray, unflatten(flat, arch + "/"))
         opt_init, step_fn = train.make_train_step(cfg, mesh=mesh)
@@ -118,7 +120,6 @@ def task_train(inp, out_path):
             params, opt, m = step(params, opt,
                                   pipeline.synthetic_batch(cfg, dc, s))
             metrics.append([float(m["loss"]), float(m["grad_norm"])])
-        tag = f"{arch}/{shape[0]}x{shape[1]}"
         res[tag + "/metrics"] = np.asarray(metrics)
         res.update(flatten(params, tag + "/params/"))
     np.savez(out_path, **res)

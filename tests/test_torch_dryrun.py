@@ -11,7 +11,8 @@
   decode at this rank's batch rows on a model whose blocks hold this
   rank's tensor-parallel slices (``sharding.tp_slice``: the shard bodies
   run whole-sequence, as the mesh runs them between ``gather_seq`` and
-  ``scatter_seq``), the embedding and head whole; for decode, with the
+  ``scatter_seq``), the embedding and head the rank's piece of the vocab
+  where it divides the model axis, else whole; for decode, with the
   mesh-free attention over the whole cache at the rank's heads replaced
   by the mesh's, every head over the rank's piece of the cache;
 * the train cell's collective bytes equal the ring formula over its
@@ -33,6 +34,7 @@
 """
 import dataclasses
 import math
+import types
 
 import jax
 import pytest
@@ -125,10 +127,16 @@ def _local_rows(cfg, shape):
 
 def _rank_slices(params, cfg, index):
     """``params`` with each block leaf cut to model rank ``index``'s
-    tensor-parallel slice (``sharding.tp_slice`` over ``MODEL``), in
-    place."""
+    tensor-parallel slice (``sharding.tp_slice`` over ``MODEL``), and the
+    embedding and the head to its piece of the vocab where the vocab
+    divides ``MODEL`` (their ``model`` shard, ``sharding.vocab_piece``),
+    in place."""
+    vocab = sharding.vocab_piece(
+        cfg, types.SimpleNamespace(index=index, size=MODEL))
     for name, p in list(params.named_parameters()):
         piece = sharding.tp_slice(name, cfg, index, MODEL)
+        if vocab is not None and name in ("embed", "head"):
+            piece = (p.dim() - (2 if name == "embed" else 1),) + vocab
         if piece is not None:
             dim, lo, hi = piece
             owner, _, leaf = name.rpartition(".")
@@ -141,8 +149,10 @@ def _rank_slices(params, cfg, index):
 def test_flops_are_the_mesh_free_call_at_the_local_rows(records, arch, shape,
                                                         layers):
     """Rank 0 of the (16, 16) mesh: smollm-135m's one q head of nine and
-    the kv head it reads, its 96 of 1536 ``ff`` columns; mamba2-2.7b's 5
-    of 80 SSD heads."""
+    the kv head it reads, its 96 of 1536 ``ff`` columns, its 3072 of the
+    49152 rows of the tied embedding (the head's products a sixteenth);
+    mamba2-2.7b's 5 of 80 SSD heads, its head whole (50280 does not
+    divide 16)."""
     cfg = tconf.get_arch(arch, num_layers=layers)
     sh = tconf.SHAPES[shape]
     with FakeTensorMode():
@@ -224,9 +234,10 @@ def test_train_collectives_are_the_ring_formula_by_hand(records):
     """Each leaf sharded on the mesh is all-gathered at each use, axis by
     axis in mesh order (over both axes: the first gather's output a
     sixteenth of the leaf, the second's the whole leaf; a tensor-parallel
-    leaf whose ``model`` shard is its body's slice, the MLP's here, over
-    ``data`` only: a sixteenth), each microbatch: a block's leaves twice
-    under ``remat="full"`` (the forward and the recompute), the tied
+    leaf whose ``model`` shard is its body's slice, the MLP's here, and
+    the tied embedding, whose ``model`` shard is the rank's vocab rows,
+    over ``data`` only: a sixteenth), each microbatch: a block's leaves
+    twice under ``remat="full"`` (the forward and the recompute), the tied
     embedding once at the lookup and once at the head. Each use's
     gradient is reduce-scattered back in reverse order (over both axes: a
     sixteenth of the leaf, then a 256th), at the reference's ``g - 1`` on
@@ -241,20 +252,26 @@ def test_train_collectives_are_the_ring_formula_by_hand(records):
     stops once it has rebuilt what the backward reads: the MLP partial's
     reduce-scatter is not run again), and the backward does the
     conjugates (a reduce-scatter for each gather, an all-gather for each
-    reduce-scatter); the final norm's gather once each way."""
+    reduce-scatter); the final norm's gather once each way; the
+    embedding's partial lookup (the whole sequence in the rank's vocab
+    rows) reduce-scattered into the rows, and its gradient all-gathered
+    back. The loss crosses the ranks' pieces of the vocab in float32, a
+    value a token: a MAX all-reduce, and the packed sum of two
+    all-reduced forward and again in the backward."""
     cfg, leaves, _ = _smollm_layout()
     assert cfg.remat == "full" and cfg.tie_embeddings
     ring_ag, ring_rs, ring_ar = 15 / 16, 15, 2 * 15 / 16
     rows = tconf.SHAPES["train_4k"]["global_batch"] // DATA
     act = rows * tconf.SHAPES["train_4k"]["seq_len"] * cfg.d_model * 2
-    gather = cfg.grad_accum * (6 * cfg.num_layers + 1) * act * ring_ag
-    scatter = cfg.grad_accum * (5 * cfg.num_layers + 1) * act / MODEL * ring_rs
+    gather = cfg.grad_accum * (6 * cfg.num_layers + 2) * act * ring_ag
+    scatter = cfg.grad_accum * (5 * cfg.num_layers + 2) * act / MODEL * ring_rs
     reduce = 0.0
     for name, (n, shape, spec) in leaves.items():
         full, pieces = n * 2, _shards(shape, spec)
         uses = 2 if name == "embed" else 1
         passes = 2 if name.startswith("stack.") else 1
-        if pieces == DATA * MODEL and sharding.tp_slice(name, cfg, 0, MODEL):
+        if pieces == DATA * MODEL and (name == "embed" or sharding.tp_slice(
+                name, cfg, 0, MODEL)):
             gathered, scattered = full / MODEL, full / pieces
         elif pieces == DATA * MODEL:
             gathered, scattered = full / MODEL + full, full / MODEL + full / pieces
@@ -266,6 +283,8 @@ def test_train_collectives_are_the_ring_formula_by_hand(records):
         scatter += cfg.grad_accum * uses * scattered * ring_rs
         replicated = 2 - sum(e is not None for e in spec)
         reduce += replicated * full / pieces * ring_ar
+    tokens = rows * tconf.SHAPES["train_4k"]["seq_len"]
+    reduce += cfg.grad_accum * (1 + 2 + 2) * tokens * 4 * ring_ar
     reduce += (2 + 3) * 4 * ring_ar
     counts = records["smollm-135m", "train_4k"]["hlo"]["collective_counts"]
     assert set(counts) == {"all-gather", "reduce-scatter", "all-reduce"}
@@ -320,12 +339,17 @@ def test_prefill_shards_attention_heads_over_model(tmp_path):
 def test_decode_holds_the_cache_in_its_sequence_pieces(tmp_path):
     """llama3-405b x ``decode_32k`` on (16, 16) at 1 layer: each rank's 8
     rows over its 2048 of the 32768 slots. No tensor of the step spans
-    the whole sequence (a K/V leaf gathered over ``model`` would), and
+    the whole sequence (a K/V leaf gathered over ``model`` would) or the
+    whole vocab (the embedding, the head or the logits whole would), and
     the rank peaks under its arguments (its piece of the cache, 64 MiB,
-    among them) plus a block's tensor-parallel slices plus the head
-    gathered whole, with two of the head's ``model`` pieces in flight in
-    its gather. The parent's decode gathered every cache leaf whole and
-    ran every block whole: 207.7 GiB a rank at 126 layers."""
+    among them) plus a block's leaves as its gathers hold them (each its
+    ``model`` shard, gathered over ``data``; ``wk``/``wv``, whose 8 kv
+    heads do not divide 16, whole before the cut to the rank's head)
+    plus the head's ``model`` shard, its vocab rows gathered over
+    ``data`` (a sixteenth of the head). Decode once gathered every cache
+    leaf whole and ran every block whole (207.7 GiB a rank at 126
+    layers), and then the head whole, with two of its ``model`` pieces
+    in flight in the gather: a bound of the head and a ninth more."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     sh = tconf.SHAPES["decode_32k"]
@@ -355,13 +379,42 @@ def test_decode_holds_the_cache_in_its_sequence_pieces(tmp_path):
     assert piece[1:3] == (sh["global_batch"] // DATA, sh["seq_len"] // MODEL)
     assert sh["seq_len"] not in widest
     assert sh["seq_len"] // MODEL in widest      # the scores over the piece
+    assert cfg.vocab not in widest
+    assert cfg.vocab // MODEL in widest          # the rank's logits
+    grid = sharding.make_mesh((DATA, MODEL), ("data", "model"),
+                              devices=["cpu"] * (DATA * MODEL))
     with FakeTensorMode():
         model = lm.LanguageModel(cfg)
-        block = _rank_slices(model, cfg, 0).stack.blocks[0]
-        slices = sum(p.numel() * p.element_size() for p in block.parameters())
-        head = model.head.numel() * model.head.element_size()
-    bound = rec["memory"]["argument_bytes"] + slices + head * (1 + 2 / MODEL)
+        specs = sharding.param_specs(model, cfg, grid)
+        held = {k: p.numel() * p.element_size() // (
+            MODEL if "model" in specs[k] else 1)
+            for k, p in model.named_parameters()}
+    block = sum(n for k, n in held.items() if k.startswith("stack."))
+    assert held["head"] * MODEL == cfg.d_model * cfg.vocab * 2
+    bound = rec["memory"]["argument_bytes"] + block + held["head"]
     assert rec["memory"]["peak_device_bytes"] < bound
+
+
+def test_decode_under_cp_attention_keeps_the_rank_heads(tmp_path):
+    """llama3-405b x ``decode_32k`` on (16, 16) at 1 layer, with
+    ``cp_attention`` and without: the same collectives, bytes and peak.
+    Decode splits the heads either way (the reference's decode ignores the
+    flag), so each block gathers ``wq``/``wo`` as their ``model`` shards
+    over ``data`` only; only a context-parallel call (prefill or train
+    over the rank's rows) gathers the attention's leaves whole. Gathering
+    them whole for decode too cost 3.3x the collective bytes at 126
+    layers."""
+    recs = [dryrun.run_cell("llama3-405b", "decode_32k", multi_pod=False,
+                            overrides={"num_layers": 1, **extra}, tag=tag,
+                            results_dir=tmp_path, verbose=False)
+            for tag, extra in (("split", {}),
+                               ("cp", {"cp_attention": True}))]
+    for rec in recs:
+        assert rec["status"] == "ok", rec.get("trace")
+    split, cp = recs
+    for key in ("collective_bytes", "collective_counts", "flops"):
+        assert cp["hlo"][key] == split["hlo"][key], key
+    assert cp["memory"] == split["memory"]
 
 
 def test_microbatches_smaller_than_the_batch_shards_run_whole(tmp_path):

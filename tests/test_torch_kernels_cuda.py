@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention, flash_decode, ref
+from repro_torch.kernels import flash_attention, flash_decode, ops, ref
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels import route_score as kernel
 from repro_torch.kernels import ssd_scan
@@ -394,6 +394,27 @@ def test_flash_attention_kernel_matches_plain_version(b, sq, sk, h, kv, d,
     assert flash_attention.flash_attention.launches == before + 1
     _check(got, ref.attention_ref(q, k, v, window=window, q_offset=q_offset),
            TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rank", [0, 7, 15])
+def test_cp_attention_query_block_matches_plain_version(rank, dtype):
+    """``ops.attention`` as the context-parallel attention calls it
+    (``layers.cp_attend``): one model rank's 256 queries of llama3-405b's
+    4096-token sequence over 16 ranks (128 q heads, 8 kv heads of 128),
+    at its first position ``q_offset`` = 256 rank, over the whole K/V,
+    which come as the two halves of the gathered (B, S, KV, 2 hd)
+    buffer (strided views); one launch."""
+    _needs_card()
+    rng = np.random.default_rng(rank)
+    q = _randn(rng, (1, 256, 128, 128), dtype)
+    kv = _randn(rng, (1, 4096, 8, 256), dtype)
+    k, v = kv.split(128, dim=-1)
+    before = flash_attention.flash_attention.launches
+    got = ops.attention(q, k, v, q_offset=256 * rank)
+    assert flash_attention.flash_attention.launches == before + 1
+    _check(got, ref.attention_ref(q, k, v, q_offset=256 * rank), TOL[dtype])
 
 
 @pytest.mark.cuda

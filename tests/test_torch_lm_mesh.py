@@ -27,10 +27,21 @@ the rank's piece of the sequence, the Mamba state its heads):
   same greedy ids (``tests/jax_mesh_child.py``); the two cases of
   uneven heads (3 SSD heads, 3 q / 1 kv head over 2) are held against
   the mesh-free port only;
+* every case whose vocab (512) divides the model axis holds the
+  embedding, the head and the logits as the rank's half of the vocab
+  (the lookups' partials summed, the argmax over the halves); a vocab
+  of 511 keeps them whole (held against the mesh-free port), and
+  musicgen-medium (audio: four codebooks' tables and heads cut alike)
+  is held against the mesh-free port within the same 1e-5: its sum over
+  the codebooks is taken a rank at a time, a float32 rounding apart;
+* mixtral with ``cp_attention`` prefills context-parallel and decodes on
+  the heads cut from the whole leaves, against the mesh-free port and
+  the reference's mesh with the flag set;
 * at a world of 1 (an in-process group, the (1, 1) mesh) every step is
   the mesh-free one bit for bit.
 """
 import concurrent.futures
+import dataclasses
 import json
 
 import jax
@@ -52,8 +63,11 @@ REF_TOL = dict(atol=5e-5, rtol=5e-5)
 REF_ARCH = "mixtral_8x7b"
 # the cases on the reference's parameters, which it also runs: the plain
 # mixtral, a prompt of 15, mamba2, zamba2, smollm's int8 cache from empty,
-# the prompt of 8 seated into 20 slots, the ring
+# the prompt of 8 seated into 20 slots, the ring; and mixtral with
+# ``cp_attention``
 REF_CASES = [c for c in worker.LM_MESH_CASES if c[1] == "ref"]
+CP_CASES = [c for c in REF_CASES if worker._lm_case(c)[3].get("cp_attention")]
+LAYOUT_CASES = [c for c in REF_CASES[1:] if c not in CP_CASES]
 
 
 @pytest.fixture(scope="module")
@@ -103,6 +117,26 @@ def test_gloo_world_of_two_matches_the_mesh_free_port(runs, case):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("case", worker.LM_MESH_CASES,
+                         ids=[worker.lm_case_id(c)
+                              for c in worker.LM_MESH_CASES])
+def test_each_case_takes_its_vocab_and_attention_path(runs, case):
+    """The greedy ids come from the ranks' pieces of the vocab
+    (``lm.vocab_argmax``, once a prefill or decode step) wherever the
+    vocab divides the 2 ranks, never for the vocab of 511; the
+    context-parallel attention (``layers.cp_attend``) runs only under
+    ``cp_attention``, once a layer in the prefill."""
+    got = runs["mesh"][worker.lm_case_tag(case)]
+    arch, _, _, opts = worker._lm_case(case)
+    cfg = dataclasses.replace(reduced(get_arch(arch)), **{
+        k: v for k, v in opts.items() if k not in ("cache", "empty")})
+    calls = got["calls"]
+    assert calls["lm.vocab_argmax"] == (
+        len(got["ids"]) if cfg.vocab % 2 == 0 else 0)
+    assert calls["layers.cp_attend"] == (
+        cfg.num_layers if cfg.cp_attention else 0)
+
+
 def _against_the_reference(got, ref, tag):
     for step, (logits, ids) in enumerate(zip(got["logits"], got["ids"])):
         np.testing.assert_allclose(logits.numpy(),
@@ -115,8 +149,8 @@ def test_mixtral_over_the_mesh_matches_the_reference_mesh(runs):
     _against_the_reference(runs["mesh"][REF_ARCH], runs["jax"], REF_ARCH)
 
 
-@pytest.mark.parametrize("case", REF_CASES[1:],
-                         ids=[worker.lm_case_id(c) for c in REF_CASES[1:]])
+@pytest.mark.parametrize("case", LAYOUT_CASES,
+                         ids=[worker.lm_case_id(c) for c in LAYOUT_CASES])
 def test_decode_layout_cases_match_the_reference_mesh(runs, case):
     """The prompt that the model axis does not divide, mamba2 and zamba2
     (the Mamba state by heads, the hybrid's shared-attention cache),
@@ -124,6 +158,19 @@ def test_decode_layout_cases_match_the_reference_mesh(runs, case):
     cache (decode crossing from rank 0's slots into rank 1's) and the ring
     of 6 slots that wraps, against the reference's jitted prefill and
     decode on its (1, 2) mesh."""
+    tag = worker.lm_case_tag(case)
+    _against_the_reference(runs["mesh"][tag], runs["jax"], tag)
+
+
+@pytest.mark.parametrize("case", CP_CASES,
+                         ids=[worker.lm_case_id(c) for c in CP_CASES])
+def test_cp_attention_matches_the_reference_mesh(runs, case):
+    """mixtral with ``cp_attention``: the prefill context-parallel (each
+    rank's 8 queries over the 16 positions' K/V, gathered once, the
+    kernel told their first position), its cache handed off as the rank's
+    piece of that K/V, decode on the heads cut from the whole leaves;
+    against the reference's jitted prefill and decode with the flag on
+    its (1, 2) mesh."""
     tag = worker.lm_case_tag(case)
     _against_the_reference(runs["mesh"][tag], runs["jax"], tag)
 

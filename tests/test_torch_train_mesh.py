@@ -13,16 +13,21 @@ Multi-rank cases run in a child process over a gloo world
   tensor-parallel over ``model`` (attention on the rank's heads, the MLP
   on its ``ff`` slice, the experts on theirs; mixtral's 2 kv heads over
   4 read by a forced slice) with the residual stream the rank's rows of
-  the sequence. The same for (2, 2) smollm-135m with ``remat="full"``
-  and ``grad_accum=2``, with 3 heads and 1 kv head, and with a sequence
-  of 31, and for (2, 2) zamba2-7b (its shared block gathered at each
-  use, the Mamba body on the rank's SSD heads).
+  the sequence, and the embedding, the head, the logits and the loss on
+  the rank's piece of the vocab (512 over 2 or 4: the logsumexp and the
+  gold logit across the ranks). The same for (2, 2) smollm-135m with
+  ``remat="full"`` and ``grad_accum=2``, with 3 heads and 1 kv head,
+  with a sequence of 31, with a vocab of 511 (the tied embedding whole
+  on every rank) and with ``cp_attention`` (the context-parallel
+  attention), and for (2, 2) zamba2-7b (its shared block gathered at
+  each use, the Mamba body on the rank's SSD heads).
 * (2, 2) mixtral and (1, 2) qwen3-moe (expert-parallel) against the
   reference's jitted mesh step on the same JAX mesh, from its own
   parameters. With the batch split over ``data`` each data shard routes
   its own rows to its own capacity and the aux loss is the shards' mean:
   another function than the mesh-free layer, in both packages, so these
-  are held to the reference's mesh step with ``test_torch_train_step``'s
+  are held to the reference's mesh step (as is (2, 2) smollm-135m with
+  ``cp_attention``) with ``test_torch_train_step``'s
   tolerances (loss rtol 1e-5, grad norm rtol 1e-4, parameters atol
   ``2 * sum(lr_t) + 1e-6``).
 * Each rank's local share of every leaf; the reshard round trip.
@@ -33,6 +38,7 @@ Multi-rank cases run in a child process over a gloo world
   step bit for bit, for the dense, SSM, and both MoE bodies.
 """
 import concurrent.futures
+import dataclasses
 import functools
 import json
 
@@ -63,7 +69,9 @@ PARITY = 1e-4
 STEPS = worker.STEP_RUN["steps"]
 LR_SUM = sum(float(cosine_schedule(3e-4, 200, 10000)(t))
              for t in range(1, STEPS + 1))
-REF_ARCHS = ("mixtral_8x7b", "qwen3_moe_235b_a22b")
+REF_ARCHS = ("mixtral_8x7b", "qwen3_moe_235b_a22b", "smollm_135m")
+# the variants on the reference's parameters, also run by its mesh step
+REF_VARIANTS = [v for v in worker.MESH22_VARIANTS if v[2] == "ref"]
 
 
 def _ref_init(arch):
@@ -84,6 +92,9 @@ def runs(tmp_path_factory):
               worker.STEP_RUN["seq"]]
              for a, s, src in worker.MESH22_CASES + worker.EP12_CASES
              if src == "ref" and s != (1, 4)]
+    cases += [[a, list(s), STEPS, worker.STEP_RUN["batch"],
+               worker.case_run(over)["seq"], over,
+               worker.case_tag(a, s, over)] for a, s, _, over in REF_VARIANTS]
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         w22 = pool.submit(worker.spawn, "mesh22", 4, tmp / "w22")
         w12 = pool.submit(worker.spawn, "ep12", 2, tmp / "w12")
@@ -117,10 +128,31 @@ def test_mesh_step_variants_match_the_mesh_free_step(runs, arch, shape,
     heads with the gated norm's sum over ``model``), smollm-135m with 3
     heads and 1 kv head (the heads cut 2 and 1 from leaves stored whole
     over ``model``, their gradients' all-reduce summing disjoint slices)
-    and with a sequence of 31 (the rows whole on both model ranks, the
-    partials all-reduced), against the mesh-free step of the same
-    config."""
+    with a sequence of 31 (the rows whole on both model ranks, the
+    partials all-reduced), with a vocab of 511 (the tied embedding and
+    its gradient whole on both model ranks) and with ``cp_attention`` on
+    the reference's parameters (each rank's queries over the K/V
+    gathered once, the attention leaves whole), against the mesh-free
+    step of the same config."""
     _assert_mesh_free_parity(runs, arch, shape, source, overrides)
+
+
+@pytest.mark.parametrize("arch,shape,source,overrides", [
+    c + (None,) for c in worker.MESH22_CASES + worker.EP12_CASES]
+    + list(worker.MESH22_VARIANTS))
+def test_each_case_takes_its_vocab_and_attention_path(runs, arch, shape,
+                                                      source, overrides):
+    """The loss crosses the ranks' pieces of the vocab (``lm.vocab_nll``,
+    once a microbatch) wherever the vocab divides the model axis (512
+    over 2 or 4), never for the vocab of 511; the context-parallel
+    attention (``layers.cp_attend``) runs only under ``cp_attention``."""
+    calls = runs["result"][worker.case_tag(arch, shape, overrides)]["calls"]
+    cfg = dataclasses.replace(reduced(get_arch(arch)), **{
+        k: v for k, v in (overrides or {}).items() if k != "seq"})
+    micro = worker.STEP_RUN["steps"] * cfg.grad_accum
+    assert calls["lm.vocab_nll"] == (micro if cfg.vocab % shape[1] == 0
+                                     else 0)
+    assert (calls["layers.cp_attend"] > 0) == cfg.cp_attention
 
 
 def _assert_mesh_free_parity(runs, arch, shape, source, overrides=None):
@@ -140,7 +172,22 @@ def _assert_mesh_free_parity(runs, arch, shape, source, overrides=None):
 @pytest.mark.parametrize("arch,shape", [("mixtral_8x7b", (2, 2)),
                                         ("qwen3_moe_235b_a22b", (1, 2))])
 def test_mesh_step_matches_the_reference_mesh_step(runs, arch, shape):
-    tag = f"{arch}/{shape[0]}x{shape[1]}"
+    _assert_reference_parity(runs, f"{arch}/{shape[0]}x{shape[1]}")
+
+
+@pytest.mark.parametrize("arch,shape,source,overrides", REF_VARIANTS)
+def test_cp_attention_step_matches_the_reference_mesh_step(
+        runs, arch, shape, source, overrides):
+    """smollm-135m with ``cp_attention`` on (2, 2): each rank's 16 rows
+    of queries over the K/V gathered once, the whole ``wq``/``wk``/
+    ``wv``/``wo`` gathered at each use, the tied embedding and the head
+    the rank's half of the vocab; against the reference's jitted mesh
+    step with the flag set, at the same tolerances (it is also held
+    against the mesh-free step, with the other variants)."""
+    _assert_reference_parity(runs, worker.case_tag(arch, shape, overrides))
+
+
+def _assert_reference_parity(runs, tag):
     got, ref = runs["result"][tag], runs["jax"]
     jm = ref[tag + "/metrics"]
     np.testing.assert_allclose([m[0] for m in got["metrics"]], jm[:, 0],

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
-from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
@@ -34,7 +34,7 @@ from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.distributed import compression, sharding  # noqa: E402
 from repro_torch.distributed import fault_tolerance as ft  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
-from repro_torch.models import convert, lm  # noqa: E402
+from repro_torch.models import convert, layers, lm  # noqa: E402
 from repro_torch.models import train as train_mod  # noqa: E402
 
 STEP_RUN = dict(batch=4, seq=32, steps=2)
@@ -51,13 +51,19 @@ EP12_CASES = (("qwen3_moe_235b_a22b", (1, 2), "ref"),)
 # after each group), 3 heads over a model axis of 2 (a forced head slice
 # of a leaf stored whole over ``model``, the one kv head read by groups
 # of 2 and 1), and a sequence ``model`` does not divide (the residual
-# stream whole on every rank, the partials all-reduced)
+# stream whole on every rank, the partials all-reduced); a vocab of 511,
+# which ``model`` does not divide (the tied embedding whole on every
+# rank), and ``cp_attention`` on the reference's parameters (the
+# attention context-parallel over the rows); every other case's vocab of
+# 512 is cut over ``model``
 MESH22_VARIANTS = (("smollm_135m", (2, 2), "port",
                     {"remat": "full", "grad_accum": 2}),
                    ("zamba2_7b", (2, 2), "port", {}),
                    ("smollm_135m", (2, 2), "port",
                     {"num_heads": 3, "num_kv_heads": 1}),
-                   ("smollm_135m", (2, 2), "port", {"seq": 31}))
+                   ("smollm_135m", (2, 2), "port", {"seq": 31}),
+                   ("smollm_135m", (2, 2), "port", {"vocab": 511}),
+                   ("smollm_135m", (2, 2), "ref", {"cp_attention": True}))
 
 
 def case_tag(arch, shape, overrides=None) -> str:
@@ -126,10 +132,37 @@ def run_steps(cfg, params, mesh, steps, batch, seq):
     return metrics, params, opt
 
 
+@contextlib.contextmanager
+def counted(*names):
+    """Counts of the calls, while the block runs, of each of ``names``
+    (``"lm.vocab_nll"``, ``"layers.cp_attend"``, ...: module attributes
+    the mesh code calls through its module's globals)."""
+    mods = {"lm": lm, "layers": layers}
+    calls = dict.fromkeys(names, 0)
+    saved = {n: getattr(mods[n.split(".")[0]], n.split(".")[1])
+             for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for n, fn in saved.items():
+        setattr(mods[n.split(".")[0]], n.split(".")[1], wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(mods[n.split(".")[0]], n.split(".")[1], fn)
+
+
 def run_cases(cases, world, out: Path, rank: int):
     """Each case's steps over its mesh; per rank: each leaf's (local
     numel, numel, spec) and whether ``reshard_checkpoint_tree`` round
-    trips the initial tree and splits it as ``distribute_tensor`` does."""
+    trips the initial tree and splits it as ``distribute_tensor`` does;
+    rank 0's result counts the calls of the vocab-parallel loss and the
+    context-parallel attention."""
     result, mine = {}, {}
     for arch, shape, source, *over in cases:
         over = over[0] if over else None
@@ -139,8 +172,9 @@ def run_cases(cases, world, out: Path, rank: int):
         specs = sharding.param_specs(params, cfg, mesh)
         start = {k: p.detach().clone() for k, p in params.named_parameters()}
         run = case_run(over)
-        metrics, params, opt = run_steps(cfg, params, mesh, run.pop("steps"),
-                                         **run)
+        with counted("lm.vocab_nll", "layers.cp_attend") as calls:
+            metrics, params, opt = run_steps(cfg, params, mesh,
+                                             run.pop("steps"), **run)
         tag = case_tag(arch, shape, over)
         mine[tag] = {k: (p.to_local().numel(), p.numel(), specs[k])
                      for k, p in train_mod.named_params(params).items()}
@@ -153,7 +187,7 @@ def run_cases(cases, world, out: Path, rank: int):
                 start[k], mesh.groups, sharding.placements(specs[k], mesh),
                 src_data_rank=None).to_local()) for k in start)
         params = train_mod.unshard(params)
-        result[tag] = {"metrics": metrics,
+        result[tag] = {"metrics": metrics, "calls": calls,
                        "params": {k: p.detach() for k, p in
                                   params.named_parameters()},
                        "mu": train_mod.full_tensors(opt.mu)}
@@ -196,7 +230,11 @@ def task_ep12(rank, world, out: Path):
 # slots (3 a rank) that wraps at position 18; 3 SSD heads over 2 (the
 # state stored whole, ``conv_x``'s channel pieces not the heads'); 3 q
 # heads and 1 kv head over 2 (the heads gathered unevenly, both ranks
-# reading the one kv head)
+# reading the one kv head). Every other case's vocab of 512 is cut over
+# the ranks; a vocab of 511 stays whole on both; musicgen's four
+# codebooks' tables and heads are cut alike; ``cp_attention`` prefills
+# context-parallel (the ranks' queries over K/V gathered once) and
+# decodes on the heads cut from the whole leaves
 LM_MESH_CASES = (("smollm_135m", "port"), ("mixtral_8x7b", "ref"),
                  ("mixtral_8x7b", "ref", 15),
                  ("mamba2_2p7b", "ref"), ("zamba2_7b", "ref"),
@@ -207,7 +245,10 @@ LM_MESH_CASES = (("smollm_135m", "port"), ("mixtral_8x7b", "ref"),
                  ("mamba2_2p7b", "port", None,
                   {"d_model": 192, "ssm_head_dim": 128}),
                  ("smollm_135m", "port", None,
-                  {"num_heads": 3, "num_kv_heads": 1}))
+                  {"num_heads": 3, "num_kv_heads": 1}),
+                 ("smollm_135m", "port", None, {"vocab": 511}),
+                 ("musicgen_medium", "port"),
+                 ("mixtral_8x7b", "ref", None, {"cp_attention": True}))
 LM_PROMPT = dict(batch=2, seq=16, decode=4)
 COUNT_PSUM_NUMEL = 1000   # the analysed all-reduce's float32 elements
 
@@ -243,10 +284,13 @@ def lm_case_config(case, out: Path):
 
 
 def lm_prompt(cfg, seq=None):
-    """The cases' prompt: numpy-drawn token ids (B, S)."""
-    return np.random.default_rng(5).integers(
-        0, cfg.vocab, (LM_PROMPT["batch"], seq or LM_PROMPT["seq"])
-    ).astype(np.int32)
+    """The cases' prompt: numpy-drawn token ids (B, S), audio's (B, S,
+    codebooks)."""
+    shape = (LM_PROMPT["batch"], seq or LM_PROMPT["seq"])
+    if cfg.modality == "audio":
+        shape += (cfg.num_codebooks,)
+    return np.random.default_rng(5).integers(0, cfg.vocab, shape).astype(
+        np.int32)
 
 
 def generate(cfg, params, mesh=None, seq=None, cache_len=None, empty=False):
@@ -273,14 +317,21 @@ def generate(cfg, params, mesh=None, seq=None, cache_len=None, empty=False):
         else:
             ids, logits, part = lm.prefill(params, prompt, cfg, mesh=mesh)
             cache = lm.seat_cache(cache, part, mesh=mesh)
-            out_logits, out_ids = [logits], [ids]
+            out_logits, out_ids = [whole(logits)], [ids]
             tok = ids[:, -1:]
         for i in range(n):
             tok, logits, cache = lm.decode_step(params, cache, tok, s + i,
                                                 cfg, mesh=mesh)
-            out_logits.append(logits)
+            out_logits.append(whole(logits))
             out_ids.append(tok)
     return {"logits": out_logits, "ids": out_ids}
+
+
+def whole(logits):
+    """Logits over the whole vocab: a mesh call's ``DTensor`` over
+    ``model`` (the vocab cut over it) gathered (collective), else as
+    they are."""
+    return logits.full_tensor() if isinstance(logits, DTensor) else logits
 
 
 def task_lm_mesh(rank, world, out: Path):
@@ -289,7 +340,9 @@ def task_lm_mesh(rank, world, out: Path):
     result = {}
     for case in LM_MESH_CASES:
         cfg, params, kw = lm_case_config(case, out)
-        result[lm_case_tag(case)] = generate(cfg, params, mesh, **kw)
+        with counted("lm.vocab_argmax", "layers.cp_attend") as calls:
+            result[lm_case_tag(case)] = generate(cfg, params, mesh, **kw)
+        result[lm_case_tag(case)]["calls"] = calls
     if rank == 0:
         torch.save(result, out / "result.pt")
 
