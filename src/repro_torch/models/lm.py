@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding
@@ -168,6 +169,14 @@ def _greedy(logits, cfg: ArchConfig, tp):
     return ids, sharding.vocab_dtensor(logits, cfg, tp)
 
 
+def _head(params, x, cfg: ArchConfig, tp):
+    """The serving calls' last layer: the final norm, the head and the
+    greedy ids of ``x`` (the positions served)."""
+    with trace.span("lm.head"):
+        x = layers.rmsnorm_apply(params.final_norm, x, cfg)
+        return _greedy(unembed(params, x, cfg), cfg, tp)
+
+
 def teacher_forced(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
                    mesh=None):
     """Teacher-forced forward, recorded by autograd when grad mode is on
@@ -238,17 +247,19 @@ def prefill(params, tokens, cfg: ArchConfig, *, patch_embeds=None,
     prompt, the Mamba state's heads and channels), and where the vocab
     divides ``model`` so do the logits: a ``DTensor`` holding this rank's
     piece of the vocab, the ids the whole vocab's (``vocab_argmax``)."""
-    tp = sharding.model_shard(mesh, tokens.shape[1])
-    x = embed(params, tokens, cfg, patch_embeds, tp)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x, caches, _ = transformer.stack_apply(params.stack, x, positions, cfg,
-                                           collect_cache=True, mesh=mesh)
-    x = sharding.gather_seq(x, tp)
-    x = layers.rmsnorm_apply(params.final_norm, x[:, -1:], cfg)
-    ids, logits = _greedy(unembed(params, x, cfg), cfg, tp)
-    if tp is not None:
-        caches = sharding.cache_dtensors(caches, init_cache(
-            cfg, tokens.shape[0], tokens.shape[1], device="meta"), cfg, tp)
+    with trace.span("lm.prefill", batch=tokens.shape[0],
+                    tokens=tokens.shape[1]):
+        tp = sharding.model_shard(mesh, tokens.shape[1])
+        x = embed(params, tokens, cfg, patch_embeds, tp)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, caches, _ = transformer.stack_apply(
+            params.stack, x, positions, cfg, collect_cache=True, mesh=mesh)
+        x = sharding.gather_seq(x, tp)
+        ids, logits = _head(params, x[:, -1:], cfg, tp)
+        if tp is not None:
+            caches = sharding.cache_dtensors(caches, init_cache(
+                cfg, tokens.shape[0], tokens.shape[1], device="meta"), cfg,
+                tp)
     return ids, logits, caches
 
 
@@ -260,37 +271,38 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None,
     ``mesh`` with a ``model`` axis above 1, ``batch`` is this rank's rows
     and the cache is in the decode layout, as ``prefill`` hands it off:
     only this rank's pieces (``sharding.cut_cache``) are allocated."""
-    device = resolve_device(device)
-    tp = sharding.model_shard(mesh, 1)
-    if tp is not None:
-        whole = init_cache(cfg, batch, seq_len, device="meta")
+    with trace.span("lm.init_cache"):
+        device = resolve_device(device)
+        tp = sharding.model_shard(mesh, 1)
+        if tp is not None:
+            whole = init_cache(cfg, batch, seq_len, device="meta")
 
-        def zeros(tree):
-            return {k: zeros(v) if isinstance(v, dict) else torch.zeros(
-                v.shape, dtype=v.dtype, device=device)
-                for k, v in tree.items()}
+            def zeros(tree):
+                return {k: zeros(v) if isinstance(v, dict) else torch.zeros(
+                    v.shape, dtype=v.dtype, device=device)
+                    for k, v in tree.items()}
 
-        return sharding.cache_dtensors(
-            zeros(sharding.cut_cache(whole, cfg, tp)), whole, cfg, tp)
+            return sharding.cache_dtensors(
+                zeros(sharding.cut_cache(whole, cfg, tp)), whole, cfg, tp)
 
-    def stacked(one, *lead):
-        return {k: v.new_zeros(lead + v.shape) for k, v in one.items()}
+        def stacked(one, *lead):
+            return {k: v.new_zeros(lead + v.shape) for k, v in one.items()}
 
-    if cfg.family == "ssm":
-        return stacked(mamba2.mamba_cache_init(cfg, batch, device=device),
-                       cfg.num_layers)
-    attn = layers.attention_cache_init(cfg, batch, seq_len, device=device)
-    if cfg.family in ("dense", "moe"):
-        return stacked(attn, cfg.num_layers)
-    if cfg.family != "hybrid":
-        raise ValueError(cfg.family)
-    mamba = mamba2.mamba_cache_init(cfg, batch, device=device)
-    n_groups, tail = divmod(cfg.num_layers, cfg.hybrid_period)
-    out = {"groups": stacked(mamba, n_groups, cfg.hybrid_period),
-           "shared_attn": stacked(attn, n_groups)}
-    if tail:
-        out["tail"] = stacked(mamba, tail)
-    return out
+        if cfg.family == "ssm":
+            return stacked(mamba2.mamba_cache_init(cfg, batch, device=device),
+                           cfg.num_layers)
+        attn = layers.attention_cache_init(cfg, batch, seq_len, device=device)
+        if cfg.family in ("dense", "moe"):
+            return stacked(attn, cfg.num_layers)
+        if cfg.family != "hybrid":
+            raise ValueError(cfg.family)
+        mamba = mamba2.mamba_cache_init(cfg, batch, device=device)
+        n_groups, tail = divmod(cfg.num_layers, cfg.hybrid_period)
+        out = {"groups": stacked(mamba, n_groups, cfg.hybrid_period),
+               "shared_attn": stacked(attn, n_groups)}
+        if tail:
+            out["tail"] = stacked(mamba, tail)
+        return out
 
 
 @torch.no_grad()
@@ -305,11 +317,16 @@ def seat_cache(full, part, *, mesh=None):
     (one all-gather a leaf and layer) and each rank keeps the slots it
     owns in ``full``; the Mamba pieces are the same on both sides.
     Collective."""
-    tp = sharding.model_shard(mesh, 1)
+    with trace.span("lm.seat_cache"):
+        _seat(full, part, sharding.model_shard(mesh, 1))
+    return full
+
+
+def _seat(full, part, tp):
     for k, src in part.items():
         dst = full[k]
         if isinstance(dst, dict):
-            seat_cache(dst, src, mesh=mesh)
+            _seat(dst, src, tp)
             continue
         if dst.dtype == torch.int8:
             raise ValueError(
@@ -322,7 +339,6 @@ def seat_cache(full, part, *, mesh=None):
             dst.to_local().copy_(src.to_local())
         else:
             _seat_pieces(dst, src, tp)
-    return full
 
 
 def _seat_pieces(dst, src, tp):
@@ -355,17 +371,18 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig, *,
     tensor-parallel slices and no cache leaf is gathered; the logits as
     ``prefill``'s.
     """
-    pieces, cache_len = cache, None
-    tp = sharding.model_shard(mesh, 1)
-    if tp is not None:
-        pieces, cache_len = sharding.cache_pieces(cache)
-    x = embed(params, tokens, cfg, patch_embeds, tp)
-    positions = torch.full((1,), pos, dtype=torch.long, device=tokens.device)
-    x, _, _ = transformer.stack_apply(params.stack, x, positions, cfg,
-                                      caches=pieces, pos=pos, mesh=mesh,
-                                      cache_len=cache_len)
-    x = layers.rmsnorm_apply(params.final_norm, x, cfg)
-    ids, logits = _greedy(unembed(params, x, cfg), cfg, tp)
+    with trace.span("lm.decode_step", batch=tokens.shape[0], pos=pos):
+        pieces, cache_len = cache, None
+        tp = sharding.model_shard(mesh, 1)
+        if tp is not None:
+            pieces, cache_len = sharding.cache_pieces(cache)
+        x = embed(params, tokens, cfg, patch_embeds, tp)
+        positions = torch.full((1,), pos, dtype=torch.long,
+                               device=tokens.device)
+        x, _, _ = transformer.stack_apply(params.stack, x, positions, cfg,
+                                          caches=pieces, pos=pos, mesh=mesh,
+                                          cache_len=cache_len)
+        ids, logits = _head(params, x, cfg, tp)
     return ids, logits, cache
 
 

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import const, dtype_of, param
@@ -81,52 +82,58 @@ def mamba_apply(params, x_in, cfg: ArchConfig, *, cache=None,
     cd = dtype_of(cfg.compute_dtype)
     bsz, s, _ = x_in.shape
     h, p = params.a_log.shape[0], cfg.ssm_head_dim
-    x_in = x_in.to(cd)
-
-    z = x_in @ params.wz.to(cd)
-    xs = x_in @ params.wx.to(cd)
-    b = x_in @ params.wb.to(cd)
-    c = x_in @ params.wc.to(cd)
-    dt_raw = x_in @ params.wdt.to(cd)
+    with trace.span("mamba.proj"):
+        x_in = x_in.to(cd)
+        z = x_in @ params.wz.to(cd)
+        xs = x_in @ params.wx.to(cd)
+        b = x_in @ params.wb.to(cd)
+        c = x_in @ params.wc.to(cd)
+        dt_raw = x_in @ params.wdt.to(cd)
 
     def conv(stream, name):
         return _causal_conv(stream, getattr(params, f"conv_{name}").to(cd),
                             getattr(params, f"conv_bias_{name}").to(cd),
                             cache=None if cache is None else cache[f"conv_{name}"])
 
-    xs, ncx = conv(xs, "x")
-    b, ncb = conv(b, "b")
-    c, ncc = conv(c, "c")
-    xs = F.silu(xs).reshape(bsz, s, h, p)
-    b = F.silu(b)
-    c = F.silu(c)
-    dt = F.softplus(dt_raw.float() + params.dt_bias[None, None, :])  # (B, S, H)
+    with trace.span("mamba.conv"):
+        xs, ncx = conv(xs, "x")
+        b, ncb = conv(b, "b")
+        c, ncc = conv(c, "c")
+        xs = F.silu(xs).reshape(bsz, s, h, p)
+        b = F.silu(b)
+        c = F.silu(c)
+        dt = F.softplus(dt_raw.float() + params.dt_bias[None, None, :])  # (B, S, H)
 
-    if cache is None:
-        y, state = ops.ssd(xs, dt, params.a_log, b, c, params.d_skip,
-                           chunk=cfg.ssm_chunk)
-        new_cache = None
-        if collect_state:
+    with trace.span("mamba.ssd"):
+        if cache is None:
+            y, state = ops.ssd(xs, dt, params.a_log, b, c, params.d_skip,
+                               chunk=cfg.ssm_chunk)
+            new_cache = None
+            if collect_state:
+                new_cache = {"conv_x": ncx, "conv_b": ncb, "conv_c": ncc,
+                             "ssd": state}
+        else:
+            y, state = ops.ssd_decode(cache["ssd"], xs[:, 0], dt[:, 0],
+                                      params.a_log, b[:, 0], c[:, 0],
+                                      params.d_skip)
+            y = y[:, None]
             new_cache = {"conv_x": ncx, "conv_b": ncb, "conv_c": ncc,
                          "ssd": state}
-    else:
-        y, state = ops.ssd_decode(cache["ssd"], xs[:, 0], dt[:, 0],
-                                  params.a_log, b[:, 0], c[:, 0],
-                                  params.d_skip)
-        y = y[:, None]
-        new_cache = {"conv_x": ncx, "conv_b": ncb, "conv_c": ncc,
-                     "ssd": state}
 
-    y = y.reshape(bsz, s, h * p)
-    # gated RMSNorm (mamba2: norm(y * silu(z))), plain as in the reference
-    y32 = (y * F.silu(z)).float()
-    if norm_sum is None:
-        ms = torch.mean(y32 * y32, dim=-1, keepdim=True)
-    else:
-        ms = norm_sum(torch.sum(y32 * y32, dim=-1, keepdim=True)) / cfg.d_inner
-    rms = torch.sqrt(ms + 1e-6)
-    y = ((y32 / rms) * params.norm_scale.float()).to(cd)
-    return y @ params.out_proj.to(cd), new_cache
+    with trace.span("mamba.norm"):
+        y = y.reshape(bsz, s, h * p)
+        # gated RMSNorm (mamba2: norm(y * silu(z))), plain as in the
+        # reference
+        y32 = (y * F.silu(z)).float()
+        if norm_sum is None:
+            ms = torch.mean(y32 * y32, dim=-1, keepdim=True)
+        else:
+            ms = norm_sum(torch.sum(y32 * y32, dim=-1,
+                                    keepdim=True)) / cfg.d_inner
+        rms = torch.sqrt(ms + 1e-6)
+        y = ((y32 / rms) * params.norm_scale.float()).to(cd)
+    with trace.span("mamba.out"):
+        return y @ params.out_proj.to(cd), new_cache
 
 
 def mamba_cache_init(cfg: ArchConfig, batch: int, dtype=None, device=None):

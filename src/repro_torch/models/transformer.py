@@ -61,6 +61,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding
 from repro_torch.models import layers, mamba2, moe
@@ -264,13 +265,16 @@ def _run(blocks, x, positions, cfg, *, caches, pos, collect_cache,
     for i, blk in enumerate(blocks):
         view = {k: v[i] for k, v in caches.items()} if decode else None
         if isinstance(blk, DenseBlock):
-            x, nc, a = _remat(dense_block_apply, cfg, blk, x, positions, cfg,
-                              cache=view, pos=pos,
-                              collect_cache=collect_cache, mesh=mesh, tp=tp,
-                              cache_len=cache_len)
+            with trace.span("block.dense"):
+                x, nc, a = _remat(dense_block_apply, cfg, blk, x, positions,
+                                  cfg, cache=view, pos=pos,
+                                  collect_cache=collect_cache, mesh=mesh,
+                                  tp=tp, cache_len=cache_len)
         else:
-            x, nc, a = _remat(mamba_block_apply, cfg, blk, x, cfg,
-                              cache=view, collect_cache=collect_cache, tp=tp)
+            with trace.span("block.mamba"):
+                x, nc, a = _remat(mamba_block_apply, cfg, blk, x, cfg,
+                                  cache=view, collect_cache=collect_cache,
+                                  tp=tp)
         aux = aux + a
         if decode:
             for k, new in nc.items():
@@ -307,9 +311,10 @@ def stack_apply(params, x, positions, cfg: ArchConfig, *, caches=None,
                         **kw)
         # the same weights after every group, gathered at each use; its
         # own cache slot each time
-        x, ac, _ = _remat(dense_block_apply, cfg, params.shared_attn, x,
-                          positions, cfg, cache=view("shared_attn", g),
-                          cache_len=cache_len, **kw)
+        with trace.span("block.dense"):
+            x, ac, _ = _remat(dense_block_apply, cfg, params.shared_attn, x,
+                              positions, cfg, cache=view("shared_attn", g),
+                              cache_len=cache_len, **kw)
         groups.append(gc)
         shared.append(ac)
     if hasattr(params, "tail"):
