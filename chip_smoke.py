@@ -30,13 +30,17 @@ Phases, one JSON line each (after the card's name and power limit):
    equal to the same route on the CPU, and every chunked run must launch
    the kernel at least once per chunk;
 4. hold each LM-plane kernel (rmsnorm, flash attention, flash decode, the
-   SSD scan) against its plain version on the card, in float32 and bf16,
+   SSD scan, the Mamba conv) against its plain version on the card, in
+   float32 and bf16,
    at the shapes execute-serving gives it and at the full widths of the
    edge archs (flash decode also at batch 1, as serving decodes, with the
    number of key splits the wrapper plans for each case; rmsnorm also at
    a decode step's 4 rows; the SSD scan also at batch 4, at S 2048 and
    with the model's own decay rates, and against its plain version in the
-   kernel's order, ``ref.ssd_tiled_ref``; flash attention and flash decode
+   kernel's order, ``ref.ssd_tiled_ref``; the Mamba conv's three streams
+   at the benchmark cells' prefill batches, 65,536 rows of zamba2-7b's
+   and mamba2-2.7b's widths, and one decode step of each, B 32 and 16,
+   from a cache; flash attention and flash decode
    also at zamba2-7b's head size 112: its prefill, 4 x 512 over 32/32
    heads, and its decode over a 544-slot cache at pos 543), at the JAX
    package's
@@ -259,7 +263,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 KERNELS = ["route_score", "rmsnorm", "flash_attention", "flash_decode",
-           "ssd_scan"]  # every csrc/<name>.cu on the main paths
+           "ssd_scan", "causal_conv"]  # every csrc/<name>.cu on the main paths
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (data sheet)
 PEAK_OPS = {"float32": 67e12,       # non-tensor-core fp32 (data sheet)
             "bfloat16": 67e12,      # bf16 columns, float32 math
@@ -290,7 +294,17 @@ FULL_CASE = {"rmsnorm": ("rows2048-d576", "rows2048-d4096", "rows2048-d3584"),
              "flash_attention": ("smollm-s512", "mixtral-s512", "zamba2-s512"),
              "flash_decode": ("smollm-cache544-pos543", "mixtral-cache544-pos543",
                               "zamba2-cache544-pos543"),
-             "ssd": ("mamba2-s512", "zamba2-s512-b4")}
+             "ssd": ("mamba2-s512", "zamba2-s512-b4"),
+             "causal_conv": ("zamba2-prefill", "mamba2-prefill",
+                             "zamba2-decode-b32", "mamba2-decode-b16")}
+# the Mamba conv's cases: (B, S, channels of x, B and C, a cache given);
+# the prefills are the benchmark cells' batches of 65,536 rows
+CONV_CASES = {"serve": (1, 8, (512, 32, 32), False),       # reduced()
+              "zamba2-prefill": (16, 4096, (7168, 64, 64), False),
+              "mamba2-prefill": (16, 4096, (5120, 128, 128), False),
+              "zamba2-decode-b32": (32, 1, (7168, 64, 64), True),
+              "mamba2-decode-b16": (16, 1, (5120, 128, 128), True)}
+CONV_K = 4
 TRAIN_STEPS = 3000                  # AlgoConfig().total_steps 12000, cut
 TRAIN_SSD_CHUNK = 256               # mamba2-2.7b's ssm_chunk (the backward's)
 TRAIN_PARITY = dict(batch=4, seq=72, steps=3)  # past reduced()'s window 64
@@ -890,6 +904,57 @@ def lm_cases(np, torch, F, ref, ops):
                    lambda a=args, c=chunk: ref.ssd_chunked_ref(*a, chunk=c),
                    None, bound, SSD_TOL[dt], {},
                    (("tiled", lambda a=args: ref.ssd_tiled_ref(*a)),))
+    yield from conv_cases(torch, ref, ops)
+
+
+def conv_cases(torch, ref, ops):
+    """``lm_cases``' entries of the Mamba conv (``CONV_CASES``): the three
+    streams in one call, outputs and new caches flat. The kernel is held
+    against the plain version in float32 rounded once to the input's type
+    (in bf16 the plain version's own roundings of each product and sum
+    reach past the tolerance where terms cancel); the time beside it
+    (``plain_timed``) is the plain version in the input's type, the
+    port's path on the card before the kernel. Inputs from the card's own
+    generator: the prefills hold 470M and 336M values in x."""
+    from repro_torch.kernels import causal_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for case, (b, s, widths, cached) in CONV_CASES.items():
+        for dt in (("float32",) if case == "serve"
+                   else ("float32", "bfloat16")):
+            def randn(*shape, scale=1.0, dt=dt):
+                return (torch.randn(shape, generator=gen, device="cuda")
+                        * scale).to(getattr(torch, dt))
+            xs = tuple(randn(b, s, c) for c in widths)
+            ws = tuple(randn(CONV_K, c, scale=0.5) for c in widths)
+            bs = tuple(randn(c, scale=0.1) for c in widths)
+            caches = (tuple(randn(b, CONV_K - 1, c) for c in widths)
+                      if cached else None)
+            args = (xs, ws, bs, caches)
+            size = xs[0].element_size()
+            rows = sum(b * (s + (CONV_K - 1) * cached + CONV_K - 1) * c
+                       + (CONV_K + 1) * c for c in widths)
+            # x read and out written once, the cache read, the new cache
+            # written, the weights and biases; 2K + 6 float operations an
+            # element (the products, the bias, the SiLU's exp and divide)
+            bound = bound_of(size * (rows + sum(b * s * c for c in widths)),
+                             (2 * CONV_K + 6) * b * s * sum(widths),
+                             PEAK_OPS["float32"])
+
+            def plain(a=args, up=False):
+                def t(x):
+                    return x.float() if up and x is not None else x
+                pairs = [ref.causal_conv_ref(t(x), t(w), t(bias), cache=t(c))
+                         for x, w, bias, c in zip(a[0], a[1], a[2],
+                                                  a[3] or (None,) * 3)]
+                return tuple(x.to(a[0][0].dtype) for x in (
+                    *(o for o, _ in pairs), *(c for _, c in pairs)))
+
+            yield ("causal_conv", case, dt,
+                   lambda a=args: sum(ops.causal_conv(*a), ()),
+                   lambda a=args: plain(a, up=True), None, bound, LM_TOL[dt],
+                   {"run": min(causal_conv.RUN, s), "rows": b * s,
+                    "plain_timed": plain}, ())
 
 
 def phase_lm_kernels(np, torch, F, ref, ops):
@@ -897,6 +962,8 @@ def phase_lm_kernels(np, torch, F, ref, ops):
     results = {}
     for (name, case, dt, kernel_fn, plain_fn, library_fn, bound, tol, facts,
          also) in lm_cases(np, torch, F, ref, ops):
+        # the plain version timed, where it is not the one held against
+        timed = facts.pop("plain_timed", plain_fn)
         got = kernel_fn()
         got = got if isinstance(got, tuple) else (got,)
         errs = []
@@ -924,7 +991,7 @@ def phase_lm_kernels(np, torch, F, ref, ops):
                "tolerance": tol,
                "ms": time_cold_ms(torch, kernel_fn, iters, flush),
                "call_ms": time_ms(torch, kernel_fn, iters),
-               "plain_ms": time_cold_ms(torch, plain_fn, iters, flush),
+               "plain_ms": time_cold_ms(torch, timed, iters, flush),
                "library_ms": (None if library_fn is None else
                               time_cold_ms(torch, library_fn, iters, flush)),
                "bound_ms": bound[0], "bound_by": bound[1], **facts}
@@ -1963,7 +2030,7 @@ def needed_kernels(cfg):
     if cfg.family != "ssm":
         need.append("flash_attention")
     if cfg.family in ("ssm", "hybrid"):
-        need.append("ssd")
+        need += ["ssd", "causal_conv"]
     return need
 
 
@@ -3458,8 +3525,8 @@ def main():
     from repro_torch.core import (batch_router, env, evaluate, maddpg,
                                   mesh_router, networks, policies)
     from repro_torch.core.catalog import build_catalog, env_params_from_catalog
-    from repro_torch.kernels import (cuda_build, flash_attention, flash_decode,
-                                     ops, ref, rmsnorm, ssd_scan)
+    from repro_torch.kernels import (causal_conv, cuda_build, flash_attention,
+                                     flash_decode, ops, ref, rmsnorm, ssd_scan)
     from repro_torch.kernels import route_score as kernel
     from repro_torch.data import pipeline
     from repro_torch.distributed import compression, sharding
@@ -3472,7 +3539,8 @@ def main():
 
     counters = {"route_score": kernel.route_score, "rmsnorm": rmsnorm.rmsnorm,
                 "flash_attention": flash_attention.flash_attention,
-                "flash_decode": flash_decode.flash_decode, "ssd": ssd_scan.ssd}
+                "flash_decode": flash_decode.flash_decode, "ssd": ssd_scan.ssd,
+                "causal_conv": causal_conv.causal_conv}
     t_start = time.perf_counter()
     phase_device(torch, cuda_build)
     scores = phase_route_score(np, torch, kernel, ref)
@@ -3582,7 +3650,11 @@ def main():
                                 ("flash_attention", "flash_attention", 98),
                                 ("flash_decode", "flash_decode", 83),
                                 ("ssd", "ssd_scan", 99))
-    ]})
+    ] + [   # replaces no TPU kernel: the reference's conv is plain jnp
+        kernel_entry("causal_conv", f"{csrc}/causal_conv.cu", None,
+                     exec_launches["causal_conv"], lm_results, full_launches,
+                     grads, train_launches, mesh_train_launches, tp_launches,
+                     sp_launches, sp_rank0, cp_launches, cp_rank)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -85,6 +85,27 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
 
 
 @_observed
+def causal_conv(xs, ws, biases, caches=None):
+    """The Mamba2 block's depthwise causal conv, bias and SiLU of each
+    stream (x (B, S, C), w (K, C), bias (C,), cache (B, K-1, C) or None),
+    all streams in one launch (``csrc/causal_conv.cu``). Returns (the
+    outputs, the new caches: the last K-1 inputs), a tuple over the
+    streams each."""
+    if _on("causal_conv", xs[0].device):
+        from repro_torch.kernels import causal_conv as _k
+
+        if _records(*xs, *ws, *biases, *(caches or ())):
+            n = len(xs)
+            out = _k.CausalConvFunction.apply(
+                n, caches is not None, *xs, *ws, *biases, *(caches or ()))
+            return out[:n], out[n:]
+        return _k.causal_conv(xs, ws, biases, caches)
+    pairs = [ref.causal_conv_ref(x, w, b, cache=c) for x, w, b, c
+             in zip(xs, ws, biases, caches or (None,) * len(xs))]
+    return tuple(o for o, _ in pairs), tuple(c for _, c in pairs)
+
+
+@_observed
 def attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Causal GQA attention at prefill (``csrc/flash_attention.cu``)."""
     if _on("attention", q.device):

@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import costs
 
@@ -107,6 +108,24 @@ def plain_vjp(fn, inputs, needs_grad, cotangents):
                                          [g for _, g in pairs],
                                          allow_unused=True))
     return tuple(next(grads) if a.requires_grad else None for a in args)
+
+
+# =============================== causal conv ==================================
+def causal_conv_ref(x, w, bias, cache=None):
+    """The Mamba2 block's depthwise causal conv, its bias and its SiLU, as
+    the JAX package's ``repro/models/mamba2.py`` writes them. x: (B, S,
+    C); w: (K, C); bias: (C,); cache: (B, K-1, C) or None (zeros). Returns
+    (silu(conv + bias) (B, S, C), new cache: the last K-1 inputs of cache
+    ++ x, a view of the padded input)."""
+    k = w.shape[0]
+    if cache is None:
+        pad = x.new_zeros((x.shape[0], k - 1, x.shape[-1]))
+    else:
+        pad = cache.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    out = sum(xp[:, i:i + s, :] * w[i][None, None, :] for i in range(k))
+    return F.silu(out + bias[None, None, :]), xp[:, -(k - 1):, :]
 
 
 # =============================== RMSNorm ======================================

@@ -123,7 +123,7 @@ def kernel_flops(name: str, a: dict) -> float:
       state's read and its update): nc 2 B Q (Q N + Q H P + 2 H P N).
     * ``ssd_decode`` (``ssd_decode_naive``): the state's read, 2 B H P N
       (XLA makes the outer-product update a multiply).
-    * ``rmsnorm``, ``route_score``: no dot."""
+    * ``rmsnorm``, ``causal_conv``, ``route_score``: no dot."""
     if name == "attention":
         b, sq, h, d = a["q"].shape
         return 4.0 * b * h * sq * a["k"].shape[1] * d

@@ -2,10 +2,12 @@
 
 Layer = projections -> causal depthwise conv (x, B, C streams) -> SSD ->
 gated RMSNorm -> out_proj, with one weight per stream as in the
-reference. Prefill runs the SSD core through ``ops.ssd`` (the
-``csrc/ssd_scan.cu`` kernel on the card); decode carries a (conv, ssd)
-cache and steps it through ``ops.ssd_decode`` (plain tensor code, as in
-the reference).
+reference. The three convs with their biases and SiLUs are one
+``ops.causal_conv`` call (the ``csrc/causal_conv.cu`` kernel on the card,
+one launch a block in prefill and in decode). Prefill runs the SSD core
+through ``ops.ssd`` (the ``csrc/ssd_scan.cu`` kernel on the card); decode
+carries a (conv, ssd) cache and steps it through ``ops.ssd_decode``
+(plain tensor code, as in the reference).
 """
 from __future__ import annotations
 
@@ -51,20 +53,6 @@ class Mamba2(nn.Module):
         self.out_proj = param(gen, (di, d), dt, di ** -0.5)
 
 
-def _causal_conv(x, w, bias, cache=None):
-    """Depthwise causal conv. x: (B, S, C); w: (K, C); cache: (B, K-1, C).
-    Returns (out, new cache: the last K-1 inputs)."""
-    k = w.shape[0]
-    if cache is None:
-        pad = x.new_zeros((x.shape[0], k - 1, x.shape[-1]))
-    else:
-        pad = cache.to(x.dtype)
-    xp = torch.cat([pad, x], dim=1)
-    s = x.shape[1]
-    out = sum(xp[:, i:i + s, :] * w[i][None, None, :] for i in range(k))
-    return out + bias[None, None, :], xp[:, -(k - 1):, :]
-
-
 def mamba_apply(params, x_in, cfg: ArchConfig, *, cache=None,
                 collect_state=False, norm_sum=None):
     """x_in: (B, S, d). cache: {"conv_x", "conv_b", "conv_c", "ssd"} or
@@ -90,18 +78,15 @@ def mamba_apply(params, x_in, cfg: ArchConfig, *, cache=None,
         c = x_in @ params.wc.to(cd)
         dt_raw = x_in @ params.wdt.to(cd)
 
-    def conv(stream, name):
-        return _causal_conv(stream, getattr(params, f"conv_{name}").to(cd),
-                            getattr(params, f"conv_bias_{name}").to(cd),
-                            cache=None if cache is None else cache[f"conv_{name}"])
-
+    names = ("x", "b", "c")
     with trace.span("mamba.conv"):
-        xs, ncx = conv(xs, "x")
-        b, ncb = conv(b, "b")
-        c, ncc = conv(c, "c")
-        xs = F.silu(xs).reshape(bsz, s, h, p)
-        b = F.silu(b)
-        c = F.silu(c)
+        (xs, b, c), (ncx, ncb, ncc) = ops.causal_conv(
+            (xs, b, c),
+            tuple(getattr(params, f"conv_{n}").to(cd) for n in names),
+            tuple(getattr(params, f"conv_bias_{n}").to(cd) for n in names),
+            None if cache is None else tuple(cache[f"conv_{n}"]
+                                             for n in names))
+        xs = xs.reshape(bsz, s, h, p)
         dt = F.softplus(dt_raw.float() + params.dt_bias[None, None, :])  # (B, S, H)
 
     with trace.span("mamba.ssd"):

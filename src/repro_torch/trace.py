@@ -7,8 +7,9 @@ The serving calls open a span around each layer they run:
 ``models/lm.py``; ``block.mamba`` and ``block.dense`` around each block
 in ``models/transformer.py`` (zamba2's shared block is a
 ``block.dense``); and in ``models/mamba2.mamba_apply`` one a phase:
-``mamba.proj`` (the five input projections), ``mamba.conv`` (the causal
-convs, their SiLUs, the ``softplus`` of ``dt``), ``mamba.ssd``
+``mamba.proj`` (the five input projections), ``mamba.conv``
+(``ops.causal_conv``: the causal convs with their biases and SiLUs; the
+``softplus`` of ``dt``), ``mamba.ssd``
 (``ops.ssd`` or ``ops.ssd_decode``), ``mamba.norm`` (the float32 gated
 RMSNorm) and ``mamba.out`` (``out_proj``).
 

@@ -311,8 +311,9 @@ def test_the_mamba2_train_gap_is_pinned(whole_calls):
     ``ssd_chunked_xla`` at the layer's shapes (two more small compiles)."""
     ref, got = whole_calls["mamba2_2p7b", "train"]
     assert ref["flops"] - got["flops"] == 6553600.0
-    assert got["by_op"] == {"ops.rmsnorm": 0.0, "ops.ssd": 10616832.0,
-                            "mm": 368050176.0, "bmm": 14942208.0}
+    assert got["by_op"] == {"ops.rmsnorm": 0.0, "ops.causal_conv": 0.0,
+                            "ops.ssd": 10616832.0, "mm": 368050176.0,
+                            "bmm": 14942208.0}
     cfg = reduced(get_arch("mamba2_2p7b"))
     b, s, q = WHOLE["batch"], WHOLE["seq"], cfg.ssm_chunk
     h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state

@@ -6,10 +6,14 @@ the JAX package, so it also runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch, reduced
+from repro_torch.kernels import causal_conv as conv_kernel
 from repro_torch.kernels import flash_attention, flash_decode, ops, ref
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels import route_score as kernel
@@ -598,3 +602,135 @@ def test_ssd_kernel_matches_plain_version(b, s, h, p, n, chunk, decay, dtype):
             ref.ssd_tiled_ref(x, dt, a_log, bb, cc, d_skip)):
         _check(y, y_ref, SSD_TOL[dtype])
         _check(state, state_ref, SSD_TOL[dtype])
+
+
+# the Mamba2 conv: (B, S, channels of x, B, C, cache given); a thread
+# walks runs of conv_kernel.RUN = 64 steps
+CONV_CASES = {
+    # the cells' prefill batches, 65,536 rows, and one decode step each
+    "zamba2-prefill": (16, 4096, (7168, 64, 64), False),
+    "mamba2-prefill": (16, 4096, (5120, 128, 128), False),
+    "zamba2-decode-b32": (32, 1, (7168, 64, 64), True),
+    "mamba2-decode-b16": (16, 1, (5120, 128, 128), True),
+    # a tensor-parallel body's conv_x (d_inner / 4); S not a multiple of
+    # the run: the last of five runs is 44 steps
+    "zamba2-tp4": (2, 300, (1792, 64, 64), False),
+    # widths that are no multiple of the vector (8 bf16, 4 float32)
+    "ragged-widths": (3, 70, (100, 12, 20), True),
+    # S below K - 1: the new cache holds cache rows
+    "s2-cache": (4, 2, (64, 16, 16), True),
+    "s2": (4, 2, (64, 16, 16), False),
+    # a second run's first steps read the first run's last inputs, the
+    # first run's the cache
+    "two-runs-cache": (2, 130, (64, 8, 8), True),
+}
+# the kernel against the plain version in float32 on the same inputs:
+# float32, the repo's float32 LM tolerance (FMAs, a fast exp and divide);
+# bf16, one rounding of the output (half an ulp is 2^-9 of it; twice that
+# for the float32 sum's and the SiLU's own error)
+CONV_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+            "bfloat16": dict(rtol=2 ** -8, atol=1e-5)}
+
+
+def _conv_inputs(rng, b, s, widths, with_cache, dtype, k=4):
+    xs = tuple(_randn(rng, (b, s, c), dtype) for c in widths)
+    ws = tuple(_randn(rng, (k, c), dtype) * 0.5 for c in widths)
+    bs = tuple(_randn(rng, (c,), dtype) * 0.1 for c in widths)
+    caches = (tuple(_randn(rng, (b, k - 1, c), dtype) for c in widths)
+              if with_cache else None)
+    return xs, ws, bs, caches
+
+
+def _conv_check(got, xs, ws, bs, caches, dtype):
+    """Each stream's output against the plain version in float32, its new
+    cache against the plain version's in the input's type bit for bit."""
+    outs, new = got
+    torch.cuda.synchronize()
+    for i in range(len(xs)):
+        cache = None if caches is None else caches[i]
+        expect, _ = ref.causal_conv_ref(
+            xs[i].float(), ws[i].float(), bs[i].float(),
+            cache=None if cache is None else cache.float())
+        assert outs[i].dtype == xs[i].dtype and outs[i].is_contiguous()
+        torch.testing.assert_close(outs[i].float(), expect, **CONV_TOL[dtype])
+        _, new_ref = ref.causal_conv_ref(xs[i], ws[i], bs[i], cache=cache)
+        assert new[i].is_contiguous() and torch.equal(new[i], new_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CONV_CASES))
+def test_causal_conv_kernel_matches_plain_version(case, dtype):
+    _needs_card()
+    b, s, widths, with_cache = CONV_CASES[case]
+    rng = np.random.default_rng(b * s + len(case))
+    args = _conv_inputs(rng, b, s, widths, with_cache, dtype)
+    before = conv_kernel.causal_conv.launches
+    got = conv_kernel.causal_conv(*args)
+    assert conv_kernel.causal_conv.launches == before + 1
+    _conv_check(got, *args, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_conv_takes_a_strided_cache_and_input(dtype):
+    """A tensor-parallel body's decode cache is a channel slice of the
+    gathered whole (``sharding.mamba_cache_to_body``): strided over batch
+    and row, contiguous in its channels; x sliced the same way, and a
+    base off the 16-byte grid for the scalar path."""
+    _needs_card()
+    rng = np.random.default_rng(7)
+    b, c = 4, 256
+    wide = _randn(rng, (b, 3, 4 * c), dtype)
+    xw = _randn(rng, (b, 5, 2 * c + 8), dtype)
+    xs = (xw[..., c:2 * c], xw[..., 1:c + 1])      # the second off the grid
+    ws = tuple(_randn(rng, (4, c), dtype) * 0.5 for _ in xs)
+    bs = tuple(_randn(rng, (c,), dtype) * 0.1 for _ in xs)
+    caches = (wide[..., c:2 * c], wide[..., 3 * c:])
+    assert not caches[0].is_contiguous() and not xs[0].is_contiguous()
+    _conv_check(conv_kernel.causal_conv(xs, ws, bs, caches), xs, ws, bs,
+                caches, dtype)
+
+
+@pytest.mark.cuda
+def test_causal_conv_prefill_then_decode_is_the_longer_prefill():
+    """S tokens, then a step from the kernel's own cache: the S + 1
+    prefill's outputs bit for bit (one kernel, one order of operations)."""
+    _needs_card()
+    rng = np.random.default_rng(8)
+    xs, ws, bs, _ = _conv_inputs(rng, 3, 130, (512, 64, 64), False,
+                                 "bfloat16")
+    whole, whole_cache = ops.causal_conv(xs, ws, bs)
+    _, cache = ops.causal_conv(tuple(x[:, :129] for x in xs), ws, bs)
+    step, step_cache = ops.causal_conv(tuple(x[:, 129:] for x in xs), ws, bs,
+                                       cache)
+    for i in range(3):
+        assert torch.equal(step[i], whole[i][:, 129:])
+        assert torch.equal(step_cache[i], whole_cache[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2_7b", "mamba2_2p7b"])
+def test_causal_conv_launches_once_a_mamba_block(arch, monkeypatch):
+    """At the configuration's depth (81 / 64 Mamba blocks; widths cut),
+    one launch a block in a prefill and in a decode step, and no call of
+    the plain version on the card."""
+    _needs_card()
+    from repro_torch.models import lm
+
+    full = get_arch(arch)
+    cfg = dataclasses.replace(reduced(full), num_layers=full.num_layers)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain conv ran on the card")
+
+    monkeypatch.setattr(ref, "causal_conv_ref", plain)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 8), device="cuda")
+    before = conv_kernel.causal_conv.launches
+    ids, _, cache = lm.prefill(params, toks, cfg)
+    assert conv_kernel.causal_conv.launches == before + full.num_layers
+    cache = lm.seat_cache(lm.init_cache(cfg, 2, 10, device="cuda"), cache)
+    before = conv_kernel.causal_conv.launches
+    lm.decode_step(params, cache, ids[:, -1:], 8, cfg)
+    assert conv_kernel.causal_conv.launches == before + full.num_layers
