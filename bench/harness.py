@@ -24,7 +24,7 @@ import torch
 
 from bench import check
 from bench.energy import Meter
-from bench.port import Port
+from bench.port import Port, arch_config
 from bench.probe import HostProbe
 from bench.roofline import peaks
 from bench.trace import Tracer
@@ -79,12 +79,15 @@ def run_cell(cell, seed, seconds, traced, device, process_start,
     reads in the program's place."""
     device = torch.device(device)
     stamps = {"start": time.time() - process_start}
+    # a key of ``run`` that the port has no field for fails here, before
+    # any weight is drawn
+    cfg = arch_config(cell.entry["config"], cell.run)
     reference = cell.module("reference", cell.family)
     loop = cell.module("loops", cell.mix["loop"])
     torch.empty(1, device=device)
     stamps["device"] = time.time() - process_start
     weights = draw(reference.param_tree(cell.run), seed, device)
-    system = Port(cell.entry["config"], cell.run, weights, device)
+    system = Port(cfg, weights, device)
     system.sync()
     stamps["weights"] = time.time() - process_start
     entries = [getattr(cell.module("metrics", m["name"]), "ENTRY", None)

@@ -4,29 +4,39 @@
 batch the loop gives it. The benchmark's weights are loaded into the
 port's model with ``load_state_dict(strict=True)``: the port's parameter
 tree has to match the reference's, leaf for leaf.
+
+A configuration file's ``run`` may state any field of the port's
+``ArchConfig`` but ``name``; a field it does not state keeps its default,
+and a key that names no field is refused.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-# the fields of the port's ArchConfig that a configuration file's ``run``
-# states (everything that shapes serving)
-RUN_FIELDS = (
-    "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
-    "head_dim", "d_ff", "vocab", "mlp_type", "qk_norm", "rope_theta",
-    "window", "tie_embeddings", "ssm_state", "ssm_head_dim", "ssm_expand",
-    "ssm_conv", "ssm_chunk", "hybrid_period", "param_dtype",
-    "compute_dtype", "kv_cache_dtype")
+
+def arch_config(name, run):
+    """The port's ``ArchConfig`` of configuration ``name`` from its whole
+    ``run``; ``ValueError`` names any key of ``run`` that is no field."""
+    from repro_torch.configs.base import ArchConfig
+
+    fields = {f.name for f in dataclasses.fields(ArchConfig)} - {"name"}
+    unknown = sorted(set(run) - fields)
+    if unknown:
+        raise ValueError(
+            f"configuration {name!r}: run key(s) {', '.join(unknown)} name "
+            "no field of the port's ArchConfig")
+    return ArchConfig(name=name, **run)
 
 
 class Port:
-    def __init__(self, name, run, weights, device):
-        from repro_torch.configs.base import ArchConfig
+    def __init__(self, cfg, weights, device):
+        """``cfg``: the port's ``ArchConfig`` (``arch_config``)."""
         from repro_torch.models import lm
 
         self.lm, self.device = lm, torch.device(device)
-        self.cfg = ArchConfig(name=name, **{k: run[k] for k in RUN_FIELDS})
-        self.vocab = self.cfg.vocab
+        self.cfg, self.vocab = cfg, cfg.vocab
         # built without a generator its leaves are empty host tensors (no
         # page is touched), which the benchmark's weights then replace
         model = lm.LanguageModel(self.cfg)

@@ -12,8 +12,9 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from bench import core, weights  # noqa: E402
-from bench.port import RUN_FIELDS, Port  # noqa: E402
+from bench.port import Port, arch_config  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from test_bench_port import run_of  # noqa: E402
 
 TOL = 2e-4   # float32 on both sides; only the order of sums differs
 
@@ -21,10 +22,10 @@ TOL = 2e-4   # float32 on both sides; only the order of sums differs
 @pytest.mark.parametrize("arch", ["zamba2_7b", "mamba2_2p7b"])
 def test_prefill_and_decode_match_the_reference_full_forward(arch):
     cfg = configs.reduced(configs.get_arch(arch))
-    run = {k: getattr(cfg, k) for k in RUN_FIELDS}
+    run = run_of(cfg)
     reference = core.load_module("reference", run["family"])
     w = weights.draw(reference.param_tree(run), 7, "cpu")
-    port = Port(arch, run, w, "cpu")
+    port = Port(arch_config(arch, run), w, "cpu")
     gen, b, s = 5, 2, 37
     tokens = torch.randint(0, run["vocab"], (b, s),
                            generator=torch.Generator().manual_seed(3))
@@ -44,13 +45,13 @@ def test_prefill_and_decode_match_the_reference_full_forward(arch):
         assert torch.equal(ref.argmax(-1), served[row])
 
 
-def test_the_reference_tree_is_the_port_tree_leaf_for_leaf():
-    for arch in ("zamba2_7b", "mamba2_2p7b"):
-        cfg = configs.get_arch(arch)
-        run = {k: getattr(cfg, k) for k in RUN_FIELDS}
-        tree = core.load_module("reference", run["family"]).param_tree(run)
-        from repro_torch.models import lm
-        sd = lm.LanguageModel(cfg).state_dict()   # empty host leaves
-        assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
-                for k, v in sd.items()} == {
-            k: (tuple(shape), dtype) for k, (shape, dtype, _) in tree.items()}
+@pytest.mark.parametrize("arch", ["zamba2_7b", "mamba2_2p7b"])
+def test_the_reference_tree_is_the_port_tree_leaf_for_leaf(arch):
+    cfg = configs.get_arch(arch)
+    run = run_of(cfg)
+    tree = core.load_module("reference", run["family"]).param_tree(run)
+    from repro_torch.models import lm
+    sd = lm.LanguageModel(cfg).state_dict()   # empty host leaves
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+            for k, v in sd.items()} == {
+        k: (tuple(shape), dtype) for k, (shape, dtype, _) in tree.items()}
